@@ -1,0 +1,76 @@
+"""Carrying receiver state and constant tables across to the port.
+
+The receiver has no weights: its parameters are constant tables, all built
+from ``dvbs2rx_tpu.spec`` numpy (never copied into this package). Its
+carried state is the JAX ``StreamReceiver`` state pytree
+(``init_state_np()`` / ``prime()``, ``dvbs2rx_tpu/rx/stream.py:120-142``),
+a flat dict of arrays with a leading channel axis.
+
+- ``state_from_numpy`` / ``state_to_numpy`` map that dict to the port's
+  state tensors and back, dtype for dtype (bool stays bool), so a test can
+  prime the JAX receiver and step both receivers from the same state.
+- ``tables_from_spec`` gathers the constant tables of one configuration
+  as device tensors, from the same builders the port's modules use.
+"""
+
+import numpy as np
+import torch
+
+from dvbs2rx_tpu.spec import bch_spec
+from dvbs2rx_tpu.spec.ldpc_tables import get_code
+from dvbs2rx_tpu.spec.rrc import polyphase_rrc_bank
+from dvbs2rx_tpu.spec.scramblers import (
+    bb_derandomizer_bytes,
+    pl_descrambling_sequence,
+)
+
+
+def state_from_numpy(state_np: dict, device) -> dict:
+    """Host state dict (JAX pytree leaves as numpy) -> device tensors."""
+    out = {}
+    for k, v in state_np.items():
+        a = np.ascontiguousarray(np.asarray(v))
+        out[k] = torch.from_numpy(a.copy()).to(device)
+    return out
+
+
+def state_to_numpy(state: dict) -> dict:
+    """Inverse of ``state_from_numpy``."""
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def tables_from_spec(cfg, device) -> dict:
+    """The constant tables of configuration ``cfg`` as tensors on
+    ``device``: LDPC edge tables (kernel layout), BCH syndrome matrix and
+    GF(2^m) tables, RRC polyphase bank and half-band taps, frame-sync
+    correlator kernels, PL descrambling sequence and BB scrambler bytes."""
+    from .ops import cplx, plsync
+    from .ops.ffsync import halfband_taps
+    from .ops.ldpc_cuda import kernel_tables
+
+    fec = cfg.fec
+    info = cfg.pls_info
+    ptr, base, shift, sync = kernel_tables(get_code(fec.ldpc_table))
+    field = bch_spec.field_for(fec.framesize)
+    bank, _, _ = polyphase_rrc_bank(cfg.sps, cfg.rolloff, cfg.rrc_delay,
+                                    cfg.n_subfilt)
+    k_sof, k_plsc = plsync.frame_sync_kernels()
+    tables = {
+        "ldpc_layer_ptr": ptr,
+        "ldpc_edge_base": base,
+        "ldpc_edge_shift": shift,
+        "ldpc_edge_sync": sync,
+        "bch_A": bch_spec.syndrome_bit_matrix(fec.framesize, fec.t,
+                                              fec.nbch).astype(np.float32),
+        "bch_exp": field.exp.astype(np.int64),
+        "bch_log": field.log.astype(np.int64),
+        "rrc_bank": bank,
+        "halfband": halfband_taps(),
+        "sof_kernel": cplx.from_np(k_sof),
+        "plsc_kernel": cplx.from_np(k_plsc),
+        "pl_descramble": cplx.from_np(
+            pl_descrambling_sequence(cfg.gold_code)[: info.payload_len]),
+        "bb_scramble": bb_derandomizer_bytes(fec.kbch // 8),
+    }
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+            for k, v in tables.items()}

@@ -1,0 +1,105 @@
+"""Segmented polyphase matched filter + decimation through a CUDA kernel.
+
+Replaces ``dvbs2rx_tpu/ops/pallas_fir.py`` (``mf_segmented``,
+``mf_decimate`` and the Pallas kernel ``_seg_kernel``). The kernel is
+``csrc/mf_segmented.cu``; its source note says what bounds it on the card
+(memory: ~66 MB of samples read per 64-channel stream step) and how the
+design answers. ``mf_segmented_plain`` is its plain version: a strided
+window (``unfold``) times the taps in float32.
+
+The JAX front end keeps its Pallas kernel off by default and runs an XLA
+grouped convolution; the port runs this kernel on the card instead (cuDNN
+would not be a port, and it defaults to TF32). The numeric contract is the
+same: exact float32, and ``base_seg`` silently clipped into
+``[0, off_bound]`` as both JAX paths do.
+
+Dispatch is by the tensor's device: CPU tensors take the plain version;
+CUDA tensors launch the kernel or raise.
+"""
+
+import torch
+
+from .. import _build
+
+LAUNCHES = 0     # kernel launches; incremented only where the kernel runs
+
+
+def _check(samples, taps_seg, base_seg, sps, seg_len, off_bound):
+    if samples.ndim != 3 or samples.shape[-1] != 2:
+        raise ValueError("samples must be (C, n, 2) planar")
+    if samples.dtype != torch.float32 or taps_seg.dtype != torch.float32:
+        raise ValueError("samples and taps must be float32")
+    C, n, _ = samples.shape
+    S, L = taps_seg.shape[1], taps_seg.shape[2]
+    if taps_seg.shape[0] != C or tuple(base_seg.shape) != (C, S):
+        raise ValueError("taps_seg (C, S, L) and base_seg (C, S) expected")
+    # caller contract (pallas_fir.py:224,267): every extraction window,
+    # at any offset up to off_bound, lies inside the input
+    need = (S * seg_len - 1) * sps + L + off_bound
+    if n < need:
+        raise ValueError(f"history too short: n={n} < {need}")
+
+
+def mf_segmented_plain(samples, taps_seg, base_seg, sps, seg_len, off_bound):
+    """Plain PyTorch version of the kernel (same contract as
+    ``mf_segmented``)."""
+    C, n, _ = samples.shape
+    S, L = taps_seg.shape[1], taps_seg.shape[2]
+    off = base_seg.to(torch.int64).clamp(0, off_bound)
+    W = (seg_len - 1) * sps + L
+    dev = samples.device
+    start = (torch.arange(S, device=dev) * (seg_len * sps))[None] + off
+    idx = start[..., None] + torch.arange(W, device=dev)          # (C, S, W)
+    rails = samples.permute(0, 2, 1)                               # (C, 2, n)
+    win = torch.gather(
+        rails[:, :, None, :].expand(C, 2, S, n), 3,
+        idx[:, None].expand(C, 2, S, W),
+    )                                                              # (C,2,S,W)
+    frames = win.unfold(3, L, sps)                         # (C, 2, S, seg, L)
+    y = torch.matmul(frames, taps_seg[:, None, :, :, None])[..., 0]
+    return y.permute(0, 2, 3, 1).reshape(C, S * seg_len, 2)
+
+
+def mf_segmented(samples, taps_seg, base_seg, sps, seg_len, off_bound):
+    """Batched segmented decimating matched filter.
+
+    samples (C, n, 2) f32; taps_seg (C, S, L) f32; base_seg (C, S) int
+    whole-sample offsets, clipped into [0, off_bound]. Window s starts at
+    sample ``s*seg_len*sps + base_seg[c, s]``. Returns (C, S*seg_len, 2).
+    """
+    global LAUNCHES
+    _check(samples, taps_seg, base_seg, sps, seg_len, off_bound)
+    if not samples.is_cuda:
+        return mf_segmented_plain(samples, taps_seg, base_seg, sps, seg_len,
+                                  off_bound)
+    C, n, _ = samples.shape
+    S, L = taps_seg.shape[1], taps_seg.shape[2]
+    x = samples.contiguous()
+    if x.data_ptr() % 8:
+        raise ValueError("samples must be 8-byte aligned (float2 reads)")
+    taps = taps_seg.contiguous()
+    base = base_seg.to(torch.int32).contiguous()
+    y = torch.empty((C, S * seg_len, 2), dtype=torch.float32,
+                    device=samples.device)
+    err = _build.lib().mf_segmented_launch(
+        x.data_ptr(), taps.data_ptr(), base.data_ptr(), y.data_ptr(),
+        C, n, S, seg_len, L, sps, off_bound,
+        torch.cuda.current_stream(samples.device).cuda_stream,
+    )
+    _build.check(err, "mf_segmented_kernel")
+    LAUNCHES += 1
+    return y
+
+
+def mf_decimate(samples, taps, base, sps, n_out):
+    """y[c, k] = sum_l samples[c, base[c] + k*sps + l] * taps[c, l].
+
+    samples (C, n, 2); taps (C, L); base (C,) int, clipped into
+    [0, n - n_out*sps - L + 1] as the JAX fallback's dynamic slice of its
+    valid-mode convolution clips it. The one-segment case of
+    ``mf_segmented``, so it runs the same kernel on the card.
+    """
+    n, L = samples.shape[1], taps.shape[-1]
+    off_bound = n - n_out * sps - L + 1
+    return mf_segmented(samples, taps[:, None, :], base[:, None], sps, n_out,
+                        off_bound)

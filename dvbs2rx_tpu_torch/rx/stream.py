@@ -1,0 +1,595 @@
+"""Device-resident locked steady-state receiver: IQ -> BBFRAME bytes -> TS.
+
+Port of ``dvbs2rx_tpu/rx/stream.py``: ``StreamReceiver`` (``init_state_np``,
+``prime``, ``step``, ``reacquire``), ``StreamSession`` (host lock policy)
+and ``StreamEngine`` (the ``Receiver``-compatible product surface with the
+native whole-step TS stitch). One step is ``state, iq -> state', kbytes,
+stats`` over every channel at once, composing:
+
+- AGC and rotator (``ops.frontend.rotate_block``);
+- feed-forward O&M timing with the segmented polyphase matched filter
+  (``ops.ffsync``; the CUDA kernel ``csrc/mf_segmented.cu`` on the card);
+- frame-window extraction and the early/late frame DLL;
+- per-lane PL sync, descrambling and demap (``parallel.batch.make_lane_fn``);
+- layered LDPC (``csrc/ldpc_layered.cu`` on the card), BCH, byte packing;
+- device CRC-8 validity (``ops.crc8_dev.packet_validity``);
+- the host TS stitch (``dvbs2rx_tpu.spec.bb_frame.BatchTSStitcher``).
+
+JAX jits and donates the step; PyTorch runs it eagerly. The step is
+functional: it returns a new state dict and never writes the tensors of
+the state it was given. The per-channel dynamic slices of the JAX step
+(``jax.lax.dynamic_slice``, which clamps its start into range) are one
+gather each with the same clamp. ``make_scan_step`` and the mesh path come
+later.
+
+Host synchronisation points of one step: the BCH all-clean test (one flag)
+and, in ``StreamSession``/``StreamEngine``, the per-step ``locked``,
+``underflow``/``overflow`` and statistics readbacks.
+"""
+
+import queue as _queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..convert import state_from_numpy
+from ..ops import cplx, plsync
+from ..ops.crc8_dev import packet_validity
+from ..ops.demap import quantize_llrs
+from ..ops.ffsync import FeedForwardSync, FFSyncState
+from ..ops.frontend import rotate_block
+from ..parallel.batch import make_lane_fn
+from ..utils.runtime import resolve_device
+from .receiver import (
+    FECStage,
+    RxConfig,
+    RxStats,
+    _snr_refine_frames,
+    acq_metric,
+    get_stats,
+)
+
+TAIL = 182          # carried symbols: one extended header window + margin
+FP_MIN, FP_MAX = 2, 90
+FP0 = 46            # nominal frame-start index inside the carried tail
+
+
+def _window(x, start, length):
+    """x (C, N, 2) float32 -> (C, length, 2): rows start[c] .. +length-1
+    of each channel, the start clamped into [0, N - length] like
+    ``jax.lax.dynamic_slice``. One gather over (re, im) pairs viewed as
+    int64."""
+    C, N = x.shape[0], x.shape[1]
+    s = start.to(torch.int64).clamp(0, N - length)
+    idx = s[:, None] + torch.arange(length, device=x.device)
+    pairs = x.contiguous().view(torch.int64)[..., 0]           # (C, N)
+    return torch.gather(pairs, 1, idx).view(torch.float32).reshape(
+        C, length, 2)
+
+
+class StreamReceiver:
+    """Locked steady-state multi-channel receiver as one device step."""
+
+    def __init__(self, cfg: RxConfig, n_channels: int,
+                 frames_per_step: int = 2, device=None):
+        if cfg.sym_sync_impl != "ffw":
+            raise ValueError("StreamReceiver requires sym_sync_impl='ffw'")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.fec = FECStage(cfg, self.device)
+        self.frame_len = L = self.fec.frame_len
+        self.payload_len = self.fec.payload_len
+        self.n_channels = n_channels
+        self.F = F = frames_per_step
+        self.n_out = F * L
+        self.n_in = self.n_out * cfg.sps
+        self.sync = FeedForwardSync(
+            sps=cfg.sps, rolloff=cfg.rolloff, max_block=self.n_out,
+            device=self.device,
+        )
+        self._hist = self.sync.history()
+        self._n_fe = self.n_in + self._hist
+        self.N_BUF = self.n_in + self._hist + L * cfg.sps + 1024
+        self._settle0 = int((TAIL + self.N_BUF / cfg.sps) // L + 2)
+        self._lane = make_lane_fn(cfg, self.fec.descr)
+
+    # ---------------- state ----------------
+
+    def init_state_np(self):
+        """Zero state as a host dict (same keys and dtypes as the JAX
+        ``StreamReceiver.init_state_np``)."""
+        C = self.n_channels
+        return {
+            "sbuf": np.zeros((C, self.N_BUF, 2), np.float32),
+            "sfill": np.zeros((C,), np.int32),
+            "ff_tau": np.zeros((C,), np.float32),
+            "ff_rate": np.zeros((C,), np.float32),
+            "ff_init": np.zeros((C,), np.int32),
+            "rot_phase": np.zeros((C,), np.float32),
+            "rot_inc": np.zeros((C,), np.float32),
+            "agc_gain": np.ones((C,), np.float32),
+            "sym_tail": np.zeros((C, TAIL, 2), np.float32),
+            "fp": np.full((C,), FP0, np.int32),
+            "coarse_acc": np.zeros((C, 89, 2), np.float32),
+            "coarse_frames": np.zeros((C,), np.int32),
+            "coarse_foffset": np.zeros((C,), np.float32),
+            "coarse_corrected": np.zeros((C,), bool),
+            "cum_foffset": np.zeros((C,), np.float32),
+            "settle": np.zeros((C,), np.int32),
+            "unlock_cnt": np.zeros((C,), np.int32),
+            "n0_refined": np.zeros((C,), np.float32),
+        }
+
+    def put_iq(self, iq_block):
+        """One (C, n_in, 2) float32 host block onto the device."""
+        return torch.as_tensor(iq_block, device=self.device)
+
+    # ---------------- the step ----------------
+
+    def _frontend(self, state, iq):
+        cfg = self.cfg
+        n_in, n_out, n_fe = self.n_in, self.n_out, self._n_fe
+        gain = state["agc_gain"]
+        if cfg.agc:
+            mag = torch.sqrt(iq[..., 0] ** 2 + iq[..., 1] ** 2).mean(-1)
+            target = cfg.agc_ref / mag.clamp(min=1e-12)
+            alpha = min(1.0, cfg.agc_rate * n_in)
+            gain = (1.0 - alpha) * gain + alpha * target
+            iq = iq * gain[:, None, None]
+        rot, phase = rotate_block(iq, state["rot_phase"], state["rot_inc"])
+        # right-aligned sample buffer: valid data ends at index N_BUF, the
+        # append is a static shift, consuming samples shrinks sfill
+        overflow = state["sfill"] > self.N_BUF - n_in
+        sfill = (state["sfill"] + n_in).clamp(max=self.N_BUF)
+        sbuf = torch.cat([state["sbuf"][:, n_in:], rot], dim=1)
+        ff = FFSyncState(tau=state["ff_tau"], rate=state["ff_rate"],
+                         initialized=state["ff_init"])
+        fe_in = _window(sbuf, self.N_BUF - sfill, n_fe)
+        ff2, syms, consumed = self.sync.step_batched(ff, fe_in, n_out)
+        sfill = sfill - consumed
+        underflow = sfill < (n_fe - n_in)
+        new_state = dict(
+            state, sbuf=sbuf, sfill=sfill, agc_gain=gain, rot_phase=phase,
+            ff_tau=ff2.tau, ff_rate=ff2.rate, ff_init=ff2.initialized,
+        )
+        return new_state, syms, overflow, underflow
+
+    def _windows(self, sym_all, fp):
+        """(C, T, 2) symbols + per-channel fp -> (hdr (C, F+1, 91, 2),
+        pay (C, F, Lp, 2), hdr3 (C, F+1, 3, 91, 2) early/on-time/late)."""
+        F, L, Lp = self.F, self.frame_len, self.payload_len
+        w = _window(sym_all, fp - 2, F * L + 94)
+        hdr = torch.stack(
+            [w[:, k * L + 1: k * L + 92] for k in range(F + 1)], dim=1)
+        pay = torch.stack(
+            [w[:, k * L + 92: k * L + 92 + Lp] for k in range(F)], dim=1)
+        hdr3 = torch.stack([
+            torch.stack([w[:, k * L + 1 + d: k * L + 92 + d]
+                         for k in range(F + 1)], dim=1)
+            for d in (-1, 0, 1)
+        ], dim=2)
+        return hdr, pay, hdr3
+
+    def _slip_metric(self, hdr3):
+        """Mean frame metric per (channel, early/on-time/late): (C, 3)."""
+        d = cplx.conj_mul(hdr3[..., 1:, :], hdr3[..., :-1, :])
+        return plsync.frame_metric(d[..., 1:, :]).mean(dim=1)
+
+    def step(self, state, iq):
+        """One step: state dict + iq (C, n_in, 2) float32 on the device ->
+        (new state, kbytes (C, F, kbch/8) uint8 scrambled, stats)."""
+        cfg = self.cfg
+        C, F, n_out = self.n_channels, self.F, self.n_out
+        B = C * F
+        sps = cfg.sps
+        st, syms, overflow, underflow = self._frontend(state, iq)
+        sym_all = torch.cat([st["sym_tail"], syms], dim=1)      # (C, T, 2)
+        fp = st["fp"]
+        hdr, pay, hdr3 = self._windows(sym_all, fp)
+
+        # ---- per-lane PL processing + demap (lane b = c*F + f) ----
+        h = hdr[:, :F].reshape(B, 91, 2).permute(1, 2, 0)
+        nxt = hdr[:, 1:].reshape(B, 91, 2).permute(1, 2, 0)
+        p = pay.reshape(B, self.payload_len, 2).permute(1, 2, 0)
+        n0_ov = torch.where(st["n0_refined"] > 0, st["n0_refined"],
+                            -1.0).repeat_interleave(F)
+        cc = st["coarse_corrected"].repeat_interleave(F)
+        out = self._lane(h, nxt, p, cc, n0_ov)
+        llrsT = quantize_llrs(out["llrs"])                       # (N, B)
+        kbytes, n_corr, iters, ok, hard_t = self.fec.lane_major(llrsT)
+        ts_ok, hdr_ok = packet_validity(kbytes ^ self.fec.bb_scramble[None])
+
+        # ---- post-decoder SNR refinement (frame 0 of each channel) ----
+        xfec_c = out["xfec"].reshape(C, F, -1, 2)[:, 0]
+        hard_c = hard_t[:, ::F].t()
+        snr_ref = _snr_refine_frames(xfec_c, hard_c, cfg.constellation,
+                                     cfg.rate, cfg.pls_info.n_mod)
+        n0_refined = torch.where(snr_ref > 0, 1.0 / snr_ref.clamp(min=1e-9),
+                                 st["n0_refined"])
+
+        # ---- frame-alignment tracking (slips from the timing loop) ----
+        m3 = self._slip_metric(hdr3)                             # (C, 3)
+        center = m3[:, 1]
+        shift = torch.where(center + 1e-3 >= m3.max(dim=1).values, 0,
+                            m3.argmax(dim=1) - 1)
+        fp = (fp + shift).clamp(FP_MIN, FP_MAX)
+
+        # ---- lock maintenance ----
+        m_frames = out["metric"].reshape(C, F, 2)[:, :, 0]
+        unlock = st["unlock_cnt"]
+        for k in range(F):
+            unlock = torch.where(m_frames[:, k] > plsync.THRESHOLD_LOCKED, 0,
+                                 unlock + 1)
+        locked = unlock < cfg.unlock_thresh
+
+        # ---- coarse accumulation with settle gating ----
+        acc = st["coarse_acc"]
+        cf = st["coarse_frames"]
+        settle = st["settle"]
+        corrected = st["coarse_corrected"]
+        coarse_est = st["coarse_foffset"]
+        autocorr = out["autocorr"].reshape(C, F, 89, 2)
+        new_coarse = torch.zeros((C,), dtype=torch.bool, device=fp.device)
+        for k in range(F):
+            in_settle = settle > 0
+            settle = torch.where(in_settle, settle - 1, settle)
+            skip = in_settle & ~corrected
+            acc = torch.where(skip[:, None, None], acc, acc + autocorr[:, k])
+            cf = torch.where(skip, cf, cf + 1)
+            fire = cf >= cfg.coarse_period
+            est_new = plsync.coarse_foffset_from_autocorr(acc)
+            coarse_est = torch.where(fire, est_new, coarse_est)
+            corrected = torch.where(
+                fire, est_new.abs() < plsync.FINE_FOFFSET_CORR_RANGE,
+                corrected)
+            acc = torch.where(fire[:, None, None], 0.0, acc)
+            cf = torch.where(fire, 0, cf)
+            new_coarse = new_coarse | fire
+
+        # ---- closed-loop rotator update ----
+        fine = out["fine"].reshape(C, F)
+        cum = st["cum_foffset"]
+        rot_inc = st["rot_inc"]
+        if cfg.closed_loop:
+            can = settle <= 0
+            adj = torch.where(corrected, fine[:, -1],
+                              torch.where(new_coarse, coarse_est, 0.0))
+            adj = torch.where(can, adj, 0.0)
+            applied = adj != 0.0
+            cum = cum + adj
+            rot_inc = torch.where(applied, -cum * (2 * np.pi) / sps, rot_inc)
+            settle = torch.where(applied, self._settle0, settle)
+            wipe = applied & ~corrected
+            acc = torch.where(wipe[:, None, None], 0.0, acc)
+            cf = torch.where(wipe, 0, cf)
+
+        new_state = dict(
+            st, sym_tail=sym_all[:, n_out:], fp=fp, coarse_acc=acc,
+            coarse_frames=cf, coarse_foffset=coarse_est,
+            coarse_corrected=corrected, cum_foffset=cum, settle=settle,
+            rot_inc=rot_inc, unlock_cnt=unlock, n0_refined=n0_refined,
+        )
+        new_state = {k: v.to(state[k].dtype) for k, v in new_state.items()}
+        stats = {
+            "metric": center,
+            "locked": locked,
+            "bch_errors": (n_corr < 0).sum(),
+            "ldpc_iters": iters,
+            "n0": out["n0"].reshape(C, F)[:, 0],
+            "snr_refined": snr_ref,
+            "coarse_foffset": new_state["coarse_foffset"],
+            "fine_foffset": fine[:, -1],
+            "coarse_corrected": new_state["coarse_corrected"],
+            "cum_foffset": new_state["cum_foffset"],
+            "fp": new_state["fp"],
+            "ts_ok": ts_ok.reshape(C, F, -1),
+            "hdr_ok": hdr_ok.reshape(C, F),
+            "sfill": new_state["sfill"],
+            "overflow": overflow,
+            "underflow": underflow,
+        }
+        return new_state, kbytes.reshape(C, F, -1), stats
+
+    # ---------------- re-acquisition (device-side) ----------------
+
+    def reacquire(self, state, iq_tail, mask):
+        """Re-acquire the channels flagged in ``mask`` ((C,) bool) from the
+        latest ``n_fe`` raw samples (``iq_tail``: (C, n_fe, 2) float32 on
+        the device). Returns (state', ok): the priming math on the tail,
+        spliced into the carried state with masked merges; CFO knowledge
+        (rotator increment, cumulative offset, coarse-corrected flag)
+        survives."""
+        cfg = self.cfg
+        C, L = self.n_channels, self.frame_len
+        n_out, n_fe, sps = self.n_out, self._n_fe, cfg.sps
+        gain = state["agc_gain"]
+        x = iq_tail * gain[:, None, None] if cfg.agc else iq_tail
+        rot, phase = rotate_block(x, torch.zeros_like(gain), state["rot_inc"])
+        ff2, syms, consumed = self.sync.step_batched(
+            self.sync.init_state(C), rot, n_out)
+        win = acq_metric(syms)[:, : L + 90]
+        p = win.argmax(dim=1)
+        found = win.gather(1, p[:, None])[:, 0] >= plsync.THRESHOLD_UNLOCKED
+        ss = p - 89
+        ss = torch.where(ss < FP0, ss + L, ss)
+        m = torch.div(n_out - ss - (TAIL - FP0), L, rounding_mode="floor")
+        E = ss + (TAIL - FP0) + m * L
+        r = n_out - E
+        start = consumed - r * sps
+        pad = torch.zeros((C, max(self.N_BUF - n_fe, 0), 2),
+                          dtype=torch.float32, device=rot.device)
+        sbuf = torch.cat([pad, rot], dim=1)[:, -self.N_BUF:]
+        sfill = n_fe - start
+        sym_tail = _window(syms, E - TAIL, TAIL)
+        ok = mask & found
+
+        def mk(new, old):
+            return torch.where(ok.reshape((C,) + (1,) * (old.ndim - 1)),
+                               new.to(old.dtype), old)
+
+        zc = torch.zeros((C,), dtype=torch.int32, device=rot.device)
+        new_state = dict(
+            state,
+            sbuf=mk(sbuf, state["sbuf"]),
+            sfill=mk(sfill, state["sfill"]),
+            ff_tau=mk(ff2.tau, state["ff_tau"]),
+            ff_rate=mk(ff2.rate, state["ff_rate"]),
+            ff_init=mk(ff2.initialized, state["ff_init"]),
+            rot_phase=mk(phase, state["rot_phase"]),
+            sym_tail=mk(sym_tail, state["sym_tail"]),
+            fp=mk(torch.full_like(zc, FP0), state["fp"]),
+            coarse_acc=mk(torch.zeros_like(state["coarse_acc"]),
+                          state["coarse_acc"]),
+            coarse_frames=mk(zc, state["coarse_frames"]),
+            unlock_cnt=mk(zc, state["unlock_cnt"]),
+        )
+        return new_state, ok
+
+    # ---------------- priming (host-side acquisition) ----------------
+
+    def prime(self, iq_prefix: np.ndarray, strict: bool = True):
+        """Acquire from the first samples and build the steady-state carry.
+
+        iq_prefix: (C, n) complex64, n >= n_in + history. Runs one front-end
+        block on the device, finds the SOF with the dense timing metric,
+        and rewinds the sample buffer by whole symbols so the next step's
+        frame group starts at ``FP0`` inside the carried tail. Returns the
+        device state. With ``strict=False`` a channel without a SOF peak
+        keeps the zero state and is reported in ``self.prime_ok``.
+        """
+        cfg = self.cfg
+        C, sps = self.n_channels, cfg.sps
+        L = self.frame_len
+        n_out, n_fe = self.n_out, self._n_fe
+        if iq_prefix.shape[0] != C:
+            raise ValueError(f"expected {C} channels")
+        if iq_prefix.shape[1] < n_fe:
+            raise ValueError(f"prime needs >= {n_fe} samples per channel")
+        iq = self.put_iq(cplx.from_np(iq_prefix[:, :n_fe]).astype(np.float32))
+        gain = torch.ones((C,), dtype=torch.float32, device=self.device)
+        if cfg.agc:
+            mag = torch.sqrt(iq[..., 0] ** 2 + iq[..., 1] ** 2).mean(-1)
+            gain = cfg.agc_ref / mag.clamp(min=1e-12)
+            iq = iq * gain[:, None, None]
+        ff2, syms_d, consumed_d = self.sync.step_batched(
+            self.sync.init_state(C), iq, n_out)
+        metric = acq_metric(syms_d).cpu().numpy()
+        syms = syms_d.cpu().numpy()
+        consumed = consumed_d.cpu().numpy()
+        rotated = iq.cpu().numpy()
+
+        state = self.init_state_np()
+        first_sof = np.zeros((C,), np.int64)
+        prime_ok = np.ones((C,), bool)
+        for c in range(C):
+            p = int(np.argmax(metric[c, : L + 90]))
+            if metric[c, p] < plsync.THRESHOLD_UNLOCKED:
+                if strict:
+                    raise RuntimeError(
+                        f"prime: no SOF found on channel {c} "
+                        f"(peak {metric[c, p]:.1f})"
+                    )
+                prime_ok[c] = False
+                continue
+            ss = p - 89
+            if ss < FP0:
+                ss += L
+            m = (n_out - ss - (TAIL - FP0)) // L
+            E = ss + (TAIL - FP0) + m * L
+            r = n_out - E
+            start = int(consumed[c]) - r * sps
+            tail_samples = rotated[c, start:n_fe]
+            state["sbuf"][c, self.N_BUF - tail_samples.shape[0]:] = \
+                tail_samples
+            state["sfill"][c] = tail_samples.shape[0]
+            state["sym_tail"][c] = syms[c, E - TAIL: E]
+            first_sof[c] = ss
+        state["ff_tau"] = ff2.tau.cpu().numpy()
+        state["ff_rate"] = ff2.rate.cpu().numpy()
+        state["ff_init"] = ff2.initialized.cpu().numpy()
+        state["agc_gain"] = gain.cpu().numpy()
+        self._first_sof = first_sof
+        self.prime_ok = prime_ok
+        return state_from_numpy(state, self.device)
+
+
+class StreamSession:
+    """Host policy around ``StreamReceiver``: prime, step, monitor lock,
+    and re-acquire dropped channels from a short rolling window of the
+    device input blocks."""
+
+    def __init__(self, sr: StreamReceiver):
+        self.sr = sr
+        self.state = None
+        self._blk_hist = []
+        self._nblk = int(np.ceil(sr._n_fe / sr.n_in)) + 1
+        self.need = np.zeros((sr.n_channels,), bool)
+        self.reacquired = 0
+
+    def prime(self, iq_prefix: np.ndarray):
+        """Soft-prime: failed channels are queued for re-acquisition.
+        Returns the per-channel success mask."""
+        self.state = self.sr.prime(iq_prefix, strict=False)
+        self.need = ~self.sr.prime_ok
+        return self.sr.prime_ok.copy()
+
+    def step(self, blk):
+        """One stream step. ``blk``: (C, n_in, 2) float32, numpy or a
+        device tensor. Returns (kbytes, stats); reading ``locked`` and the
+        buffer flags here waits for the step (the price of per-step lock
+        monitoring)."""
+        sr = self.sr
+        dblk = blk if isinstance(blk, torch.Tensor) else sr.put_iq(blk)
+        self._blk_hist.append(dblk)
+        if len(self._blk_hist) > self._nblk:
+            self._blk_hist.pop(0)
+        self.state, kb, stats = sr.step(self.state, dblk)
+        flags = torch.stack([~stats["locked"], stats["underflow"],
+                             stats["overflow"]]).cpu().numpy()
+        self.need |= flags.any(axis=0)
+        have = sum(b.shape[1] for b in self._blk_hist)
+        if self.need.any() and have >= sr._n_fe:
+            tail = torch.cat(self._blk_hist, dim=1)[:, -sr._n_fe:]
+            mask = torch.as_tensor(self.need, device=sr.device)
+            self.state, ok = sr.reacquire(self.state, tail, mask)
+            ok = ok.cpu().numpy()
+            self.reacquired += int(ok.sum())
+            self.need &= ~ok
+        return kb, stats
+
+
+class StreamEngine:
+    """Product host receiver driving the device-resident stream step.
+
+    Same ``receive()/get_stats()/stats`` surface as the JAX
+    ``StreamEngine``: chunked input of any size is re-blocked to the step
+    size, priming is soft, re-acquisition automatic (``StreamSession``),
+    and TS bytes are stitched on the host (native whole-step stitch when
+    the extension is built) by a reader thread, so the device->host fetch
+    overlaps the next steps. ``receive`` takes (C, n) complex IQ and
+    returns per-channel TS byte arrays (a flat array for one channel).
+    """
+
+    get_stats = get_stats
+
+    def __init__(self, cfg: RxConfig, n_channels: int = 1,
+                 frames_per_step: int = 2, device=None):
+        from dvbs2rx_tpu.spec.bb_frame import BatchTSStitcher
+        from dvbs2rx_tpu.spec.scramblers import bb_derandomizer_bytes
+
+        self.cfg = cfg
+        self.sr = StreamReceiver(cfg, n_channels=n_channels,
+                                 frames_per_step=frames_per_step,
+                                 device=device)
+        self.sess = StreamSession(self.sr)
+        self.n_channels = n_channels
+        self.stats = RxStats()
+        self.frame_len = self.sr.frame_len
+        self._scr = bb_derandomizer_bytes(cfg.fec.kbch // 8)
+        self._stitcher = BatchTSStitcher(n_channels)
+        self.bb_parser = self._stitcher
+        self._buf = np.empty((n_channels, 0), np.complex64)
+        self._primed = False
+        self._was_locked = np.zeros((n_channels,), bool)
+        self._fetchq = _queue.Queue(maxsize=4)
+        self._done = []
+        self._done_lock = threading.Lock()
+        self._reader_err = None
+        self._reader = threading.Thread(target=self._reader_loop, daemon=True)
+        self._reader.start()
+
+    def close(self):
+        """Stop the reader thread (pending fetches are stitched first)."""
+        if self._reader.is_alive():
+            self._fetchq.put(None)
+            self._reader.join(timeout=60)
+
+    def _update_stats(self, stats):
+        s = self.stats
+        C, F = self.n_channels, self.sr.F
+        locked = stats["locked"].cpu().numpy()
+        now_locked = bool(locked.all())
+        if now_locked and not s.locked:
+            s.lock_cnt += 1
+            s.lock_time = time.time()
+        if (~locked & self._was_locked).any():
+            s.unlock_cnt += int((~locked & self._was_locked).sum())
+        self._was_locked = locked
+        s.locked = now_locked
+        nf = int(locked.sum()) * F
+        s.sof_cnt += nf
+        s.frame_cnt += nf
+        s.coarse_foffset = float(stats["coarse_foffset"][0])
+        s.fine_foffset = float(stats["fine_foffset"][0])
+        s.cum_freq_offset = float(stats["cum_foffset"][0])
+        s.coarse_corrected = bool(stats["coarse_corrected"].all())
+        snr = float(stats["snr_refined"][0])
+        if snr > 0:
+            s.snr_db = 10.0 * np.log10(snr)
+        errs = int(stats["bch_errors"])
+        s.bch_frames += C * F
+        s.bch_frame_errors += errs
+        s.ldpc_frames += C * F
+        s.ldpc_total_iters += int(stats["ldpc_iters"]) * C * F
+
+    def _stitch(self, kb_np, ok_np, hdr_np):
+        return self._stitcher.push_step(kb_np ^ self._scr[None, None], ok_np,
+                                        hdr_np)
+
+    def _reader_loop(self):
+        while True:
+            item = self._fetchq.get()
+            if item is None:
+                self._fetchq.task_done()
+                return
+            kb, ts_ok, hdr_ok = item
+            try:
+                parts = self._stitch(kb.cpu().numpy(), ts_ok.cpu().numpy(),
+                                     hdr_ok.cpu().numpy())
+                with self._done_lock:
+                    self._done.append(parts)
+            except Exception as e:      # surfaced on the feeding thread
+                self._reader_err = e
+            finally:
+                self._fetchq.task_done()
+
+    def _drain_done(self, ts):
+        if self._reader_err is not None:
+            raise self._reader_err
+        with self._done_lock:
+            done, self._done = self._done, []
+        for parts in done:
+            for c, t in enumerate(parts):
+                ts[c].append(t)
+
+    def receive(self, iq: np.ndarray, flush: bool = True):
+        """Process IQ samples; returns the recovered TS bytes (flat uint8
+        array for one channel, a list of arrays for several). A final
+        remainder shorter than one step is buffered, and dropped at the end
+        of the stream like the reference's in-flight tail."""
+        iq = np.asarray(iq, dtype=np.complex64)
+        if iq.ndim == 1:
+            iq = iq[None]
+        if iq.shape[0] != self.n_channels:
+            raise ValueError(f"expected {self.n_channels} channel rows")
+        self._buf = np.concatenate([self._buf, iq], axis=1)
+        sr = self.sr
+        ts = [[] for _ in range(self.n_channels)]
+        if not self._primed and self._buf.shape[1] >= sr._n_fe:
+            self.sess.prime(self._buf[:, : sr._n_fe])
+            self._buf = self._buf[:, sr._n_fe:]
+            self._primed = True
+        while self._primed and self._buf.shape[1] >= sr.n_in:
+            blk = cplx.from_np(self._buf[:, : sr.n_in]).astype(np.float32)
+            self._buf = self._buf[:, sr.n_in:]
+            kb, stats = self.sess.step(blk)
+            self._update_stats(stats)
+            self._fetchq.put((kb, stats["ts_ok"], stats["hdr_ok"]))
+            self._drain_done(ts)
+        if flush:
+            self._fetchq.join()
+            self._drain_done(ts)
+        out = [np.concatenate(t) if t else np.empty(0, np.uint8) for t in ts]
+        return out[0] if self.n_channels == 1 else out

@@ -1,0 +1,152 @@
+"""On-card tier of the PyTorch/CUDA port: kernels against their plain
+versions, and the stream step on the card against the same step on the CPU.
+
+Every test is marked ``cuda`` and skips without a card. This file imports
+no jax, so it runs on a machine without JAX; ``tests/conftest.py`` does
+import jax, so run it there as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the LDPC kernel and every integer output of the stream step
+are bit-exact; the matched filter within 1e-5 absolute on unit-variance
+inputs with 21 taps (float32 sums in another order); the stream step's
+float statistics within rtol 1e-4 (card vs CPU float32 arithmetic).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dvbs2rx_tpu.spec import bch_spec
+from dvbs2rx_tpu.spec.ldpc_tables import get_code
+from dvbs2rx_tpu.tx import Transmitter, TxConfig, awgn_channel
+
+from dvbs2rx_tpu_torch.convert import state_to_numpy, state_from_numpy
+from dvbs2rx_tpu_torch.ops import cplx, fir_cuda, ldpc_cuda
+from dvbs2rx_tpu_torch.ops.bch import BCHDecoder
+from dvbs2rx_tpu_torch.ops.crc8_dev import packet_validity
+from dvbs2rx_tpu_torch.ops.ldpc import LDPCDecoder
+from dvbs2rx_tpu_torch.rx.receiver import RxConfig
+from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dvbs2rx_tpu_torch.utils.runtime import exact_fp32
+
+    exact_fp32()
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("C,S,seg_len,L,off", [
+    (4, 15, 333, 21, 23),       # ragged last tile
+    (2, 1, 1000, 21, 16),       # one segment
+    (3, 4, 256, 37, 9),         # exact tiles, longer filter
+])
+def test_mf_kernel_matches_plain(card, C, S, seg_len, L, off):
+    rng = np.random.default_rng(seg_len)
+    n = (S * seg_len - 1) * 2 + L + off + 3
+    x = torch.from_numpy(rng.normal(size=(C, n, 2)).astype(np.float32)).to(card)
+    taps = torch.from_numpy(
+        (rng.normal(size=(C, S, L)) / np.sqrt(L)).astype(np.float32)).to(card)
+    base = torch.from_numpy(
+        rng.integers(-3, off + 4, (C, S)).astype(np.int32)).to(card)
+    before = fir_cuda.LAUNCHES
+    got = fir_cuda.mf_segmented(x, taps, base, 2, seg_len, off)
+    assert fir_cuda.LAUNCHES == before + 1
+    want = fir_cuda.mf_segmented_plain(x, taps, base, 2, seg_len, off)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _llrs(code, B, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.integers(-25, 26, (B, code.N), dtype=np.int8)
+    bits = rng.integers(0, 2, (B, code.K), dtype=np.uint8)
+    llrs = np.where(code.encode(bits) == 0, 14, -14).astype(np.int8)
+    flip = rng.random((B, code.N)) < 0.02
+    return np.where(flip, -llrs, llrs).astype(np.int8)
+
+
+@pytest.mark.parametrize("table,B,kind,trials", [
+    ("S2_C4", 8, "random", 4), ("S2_C4", 8, "converging", 10),
+    ("S2_C1", 5, "random", 3), ("S2_C10", 3, "converging", 25),
+    ("S2_B4", 6, "converging", 25),
+])
+def test_ldpc_kernel_matches_plain(card, table, B, kind, trials):
+    code = get_code(table)
+    llrs = _llrs(code, B, kind, seed=B)
+    xT = torch.from_numpy(np.ascontiguousarray(llrs.T)).to(card)
+    before = ldpc_cuda.LAUNCHES
+    got = ldpc_cuda.CudaLDPCDecoder(code, trials, card).decode_lane_major(xT)
+    assert ldpc_cuda.LAUNCHES == before + 1
+    want = LDPCDecoder(code, trials, card).decode_lane_major(xT)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    rows = ldpc_cuda.CudaLDPCDecoder(code, trials, card)(
+        torch.from_numpy(llrs).to(card))
+    for g, w in zip(rows, LDPCDecoder(code, trials, "cpu")(
+            torch.from_numpy(llrs))):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_bch_and_crc_on_card_match_cpu(card):
+    """The GF(2) matmuls (float32, TF32 off) and Berlekamp-Massey on the
+    card, with clean, correctable and uncorrectable frames."""
+    framesize, t, nbch, kbch = "short", 12, 7200, 7032
+    rng = np.random.default_rng(8)
+    cw = []
+    for n_err in (0, 3, 12, 20):
+        msg = rng.integers(0, 256, kbch // 8, dtype=np.uint8)
+        par = bch_spec.bch_encode_bytes(msg, framesize, t)
+        bits = np.concatenate([np.unpackbits(msg), np.unpackbits(par)])
+        bits[rng.choice(nbch, n_err, replace=False)] ^= 1
+        cw.append(bits)
+    bits_t = torch.from_numpy(np.ascontiguousarray(np.stack(cw).T))
+    want = BCHDecoder(framesize, t, nbch, kbch, "cpu").decode_lane_major(bits_t)
+    got = BCHDecoder(framesize, t, nbch, kbch, card).decode_lane_major(
+        bits_t.to(card))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert list(want[1].numpy()[:3]) == [0, 3, 12]
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (5, kbch // 8), dtype=np.uint8))
+    for g, w in zip(packet_validity(frames.to(card)), packet_validity(frames)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_stream_step_on_card_matches_cpu(card):
+    C, F, T = 2, 2, 4
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short")
+    gpu = StreamReceiver(cfg, n_channels=C, frames_per_step=F, device=card)
+    cpu = StreamReceiver(cfg, n_channels=C, frames_per_step=F, device="cpu")
+    tx = Transmitter(TxConfig(modcod="qpsk1/2", frame_size="short"))
+    rng = np.random.default_rng(0)
+    pkts = rng.integers(0, 256, (200, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    iq1 = awgn_channel(tx.ts_to_iq(pkts.reshape(-1)), 15.0, sps=2, seed=1)
+    iq = np.stack([iq1] * C)
+    state_c = cpu.prime(iq[:, : cpu._n_fe])
+    state_g = state_from_numpy(state_to_numpy(state_c), card)
+    launches = (fir_cuda.LAUNCHES, ldpc_cuda.LAUNCHES)
+    for t in range(T):
+        blk = cplx.from_np(iq[:, cpu._n_fe + t * cpu.n_in:
+                              cpu._n_fe + (t + 1) * cpu.n_in]
+                           ).astype(np.float32)
+        state_c, kb_c, st_c = cpu.step(state_c, torch.from_numpy(blk))
+        state_g, kb_g, st_g = gpu.step(state_g, gpu.put_iq(blk))
+        np.testing.assert_array_equal(kb_g.cpu().numpy(), kb_c.numpy())
+        for k in ("bch_errors", "ldpc_iters", "ts_ok", "hdr_ok", "fp",
+                  "locked", "sfill"):
+            np.testing.assert_array_equal(st_g[k].cpu().numpy(),
+                                          st_c[k].numpy(), err_msg=k)
+        for k in ("metric", "n0", "snr_refined"):
+            np.testing.assert_allclose(st_g[k].cpu().numpy(), st_c[k].numpy(),
+                                       rtol=1e-4, err_msg=k)
+    assert fir_cuda.LAUNCHES - launches[0] == T
+    assert ldpc_cuda.LAUNCHES - launches[1] == T
+    assert bool(st_g["locked"].all()) and int(st_g["bch_errors"]) == 0
