@@ -6,9 +6,12 @@ has one obvious counterpart there. The two Pallas kernels of the JAX
 package are hand-written CUDA C++ kernels here (``csrc/``), built with
 ``nvcc`` at first use and loaded with ctypes (``_build.py``).
 
-This package never imports jax. It imports the JAX package's framework-free
-layers only: ``dvbs2rx_tpu.spec``, ``dvbs2rx_tpu.io.native`` and
-``dvbs2rx_tpu.tx``.
+This package imports nothing of the JAX package, not even its numpy-only
+modules: it keeps its own copies of the specification core (``spec/``),
+of the native TS-stitch loader (``io/native.py``) and of the transmitter
+(``tx/``), each held to its original by ``tests/test_torch_spec.py``. Only
+the tests import both packages. Entry points run on the card
+(``device=None`` means CUDA) unless the caller asks for ``"cpu"``.
 """
 
 __version__ = "0.1.0"

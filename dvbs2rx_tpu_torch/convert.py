@@ -1,10 +1,10 @@
 """Carrying receiver state and constant tables across to the port.
 
 The receiver has no weights: its parameters are constant tables, all built
-from ``dvbs2rx_tpu.spec`` numpy (never copied into this package). Its
-carried state is the JAX ``StreamReceiver`` state pytree
-(``init_state_np()`` / ``prime()``, ``dvbs2rx_tpu/rx/stream.py:120-142``),
-a flat dict of arrays with a leading channel axis.
+from the port's own ``spec`` numpy. Its carried state is the JAX
+``StreamReceiver`` state pytree (``init_state_np()`` / ``prime()``,
+``dvbs2rx_tpu/rx/stream.py:120-142``), a flat dict of arrays with a
+leading channel axis.
 
 - ``state_from_numpy`` / ``state_to_numpy`` map that dict to the port's
   state tensors and back, dtype for dtype (bool stays bool), so a test can
@@ -16,10 +16,10 @@ a flat dict of arrays with a leading channel axis.
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec import bch_spec
-from dvbs2rx_tpu.spec.ldpc_tables import get_code
-from dvbs2rx_tpu.spec.rrc import polyphase_rrc_bank
-from dvbs2rx_tpu.spec.scramblers import (
+from .spec import bch_spec
+from .spec.ldpc_tables import get_code
+from .spec.rrc import polyphase_rrc_bank
+from .spec.scramblers import (
     bb_derandomizer_bytes,
     pl_descrambling_sequence,
 )

@@ -18,7 +18,8 @@ unchanged, like the reference.
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec import bch_spec
+from ..spec import bch_spec
+from ..utils.runtime import resolve_device
 
 
 def chien_bit_matrix(exp_np, m, t, nbch, ordn):
@@ -45,7 +46,7 @@ class BCHDecoder:
                  device=None):
         self.framesize = framesize
         self.t, self.nbch, self.kbch = t, nbch, kbch
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         field = bch_spec.field_for(framesize)
         self.m = field.m
         self.ord = field.order - 1

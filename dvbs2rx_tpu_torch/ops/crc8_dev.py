@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec.scramblers import CRC8_POLY, crc8_table
+from ..spec.scramblers import CRC8_POLY, crc8_table
 
 
 @functools.lru_cache(maxsize=4)

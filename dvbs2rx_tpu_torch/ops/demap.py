@@ -12,13 +12,13 @@ import functools
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec.constellations import (
+from ..spec.constellations import (
     BITS_PER_SYMBOL,
     SIN_PI_8,
     SQRT2_2,
     constellation_points,
 )
-from dvbs2rx_tpu.spec.interleaver import column_order
+from ..spec.interleaver import column_order
 
 from ..utils.runtime import device_table
 from . import cplx

@@ -17,9 +17,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec.rrc import polyphase_rrc_bank
+from ..spec.rrc import polyphase_rrc_bank
 
-from ..utils.runtime import device_table
+from ..utils.runtime import device_table, resolve_device
 from .cplx import mod
 from .fir_cuda import mf_decimate, mf_segmented
 
@@ -70,7 +70,7 @@ class FeedForwardSync:
                  max_block=40000, device=None):
         if sps != 2:
             raise ValueError("FeedForwardSync currently supports sps=2")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sps = sps
         self.smooth = smooth
         self.rate_gain = rate_gain

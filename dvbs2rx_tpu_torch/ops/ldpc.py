@@ -19,13 +19,31 @@ takes no further deltas, so every frame's result is independent of its
 batch. Outputs match the JAX decoder bit for bit: hard bits, final LLRs,
 the batch iteration count and per-frame convergence.
 
+Compressed check messages (the CUDA kernel's on-chip layout). The stored
+message of edge ``c`` is ``clip(+-excl_c, -32, 31)`` with ``excl_c = min1``
+for the first edge ``idx0`` that reaches the layer row's minimum magnitude
+``min0`` and ``min0`` for every other edge (a tie at ``min0`` makes
+``min1 == min0``, so both rules agree), signed by the XOR of the other
+edges' signs. So one word per (layer, check row) holds the whole row:
+
+    bits 0-5    min(min0, 32)
+    bits 6-11   min(min1, 32)
+    next IB     idx0                  (IB = 3, 4, 5 bits)
+    next E      output sign of each edge, edge c at bit c
+
+for codes of at most KE = 8, 16, 32 edges per check (3, 4 and 8 bytes a
+word; ``msg_layout``). ``pack_layer_msgs`` / ``unpack_layer_msgs`` are that
+layout in plain PyTorch; unpacking gives back the stored messages exactly.
+Iteration 0 and the layer-0 dead edge keep their rules: message 0.
+
 LLR convention: positive = bit 0.
 """
 
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec.ldpc_tables import LDPCCode
+from ..spec.ldpc_tables import LDPCCode
+from ..utils.runtime import resolve_device
 
 M = 360
 MSG_CLAMP_LO = -32
@@ -76,6 +94,68 @@ def write_runs(edges_i):
     return list(zip(starts, ends))
 
 
+def magnitudes(inp):
+    """Offset magnitudes ``max(min(|inp|, 127) - beta, 0)`` of check-node
+    inputs."""
+    return (inp.abs().clamp(max=127) - BETA).clamp(min=0)
+
+
+def check_node(inp):
+    """Offset-min-sum check-node outputs, unclamped: inputs (E, ...) ->
+    (E, ...), excluding each edge's own input (first-min rule, min1 with
+    multiplicity)."""
+    mags = magnitudes(inp)
+    two = torch.topk(mags, 2, dim=0, largest=False).values
+    min0, min1 = two[0], two[1]
+    excl = torch.where(mags == min0, min1, min0)
+    neg = (inp < 0).to(torch.int32)
+    excl_sign = (neg.sum(dim=0, keepdim=True) & 1) ^ neg
+    return torch.where(excl_sign == 1, -excl, excl)
+
+
+def msg_layout(max_deg: int):
+    """(KE, IB, word bytes) of the compressed message word for a code whose
+    checks have at most ``max_deg`` edges (the kernel's template bucket)."""
+    for ke, ib, nbytes in ((8, 3, 3), (16, 4, 4), (32, 5, 8)):
+        if max_deg <= ke:
+            return ke, ib, nbytes
+    raise ValueError(f"{max_deg} edges per check: at most 32 supported")
+
+
+def pack_layer_msgs(inp, max_deg=None):
+    """Check-node inputs (E, ...) of one layer (clamped to int8, the dead
+    edge's input 127) -> (...) int64 words in the kernel's layout."""
+    E = inp.shape[0]
+    _, ib, _ = msg_layout(max_deg or E)
+    mags = magnitudes(inp).to(torch.int64)
+    min0 = mags.min(dim=0).values
+    idx0 = (mags == min0).to(torch.int64).argmax(dim=0)     # first min
+    min1 = mags.scatter(0, idx0[None], 1 << 16).min(dim=0).values
+    neg = (inp < 0).to(torch.int64)
+    sign = (neg.sum(dim=0) & 1) ^ neg                     # (E, ...)
+    c = torch.arange(E, device=inp.device).reshape((E,) + (1,) * idx0.dim())
+    signs = (sign << c).sum(dim=0)
+    return (min0.clamp(max=32) | (min1.clamp(max=32) << 6) | (idx0 << 12)
+            | (signs << (12 + ib)))
+
+
+def unpack_layer_msgs(words, E: int, dead=None, max_deg=None):
+    """Words (...) -> stored messages (E, ...) int32, ``clip(out, -32,
+    31)``. ``dead`` (bool, broadcastable to ``words``) marks rows whose last
+    edge is the layer-0 dead edge: its message is 0."""
+    _, ib, _ = msg_layout(max_deg or E)
+    w = words.to(torch.int64)
+    m0, m1 = w & 63, (w >> 6) & 63
+    idx0 = (w >> 12) & ((1 << ib) - 1)
+    c = torch.arange(E, device=w.device).reshape((E,) + (1,) * w.dim())
+    neg = (w[None] >> (12 + ib + c)) & 1
+    excl = torch.where(c == idx0[None], m1[None], m0[None])
+    msg = torch.where(neg == 1, -excl, excl).clamp(MSG_CLAMP_LO, MSG_CLAMP_HI)
+    if dead is not None:
+        msg[E - 1] = torch.where(dead, 0, msg[E - 1])
+    return msg.to(torch.int32)
+
+
 def to_state(llrsT, code: LDPCCode):
     """Lane-major (N, B) LLRs -> flat (N, B) state (parity rows regrouped)."""
     K, q = code.K, code.q
@@ -105,7 +185,7 @@ class LDPCDecoder:
             raise ValueError(f"code {code.name}: M={code.M}, expected {M}")
         self.code = code
         self.max_trials = max_trials
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.q, self.K, self.N = code.q, code.K, code.N
         self.edges = layer_edges(code)
         self.max_deg = max(len(e) for e in self.edges) + 2
@@ -142,13 +222,7 @@ class LDPCDecoder:
         inp = inp.clamp(-128, 127)
         if i == 0:
             inp[E - 1, 0] = 127                         # missing edge: inert
-        mags = (inp.abs().clamp(max=127) - BETA).clamp(min=0)
-        two = torch.topk(mags, 2, dim=0, largest=False).values
-        min0, min1 = two[0], two[1]
-        excl = torch.where(mags == min0, min1, min0)
-        neg = (inp < 0).to(torch.int32)
-        excl_sign = (neg.sum(dim=0, keepdim=True) & 1) ^ neg
-        out = torch.where(excl_sign == 1, -excl, excl)
+        out = check_node(inp)
         new_msgs = out.clamp(MSG_CLAMP_LO, MSG_CLAMP_HI)
         # new value = sat(inp + out) with the unclamped check output,
         # written back as deltas so repeated blocks compose
@@ -157,6 +231,8 @@ class LDPCDecoder:
             new_msgs[E - 1, 0] = 0
             delta[E - 1, 0] = 0
         delta = torch.where(active, delta, 0)
+        # the kernel keeps these packed: pack_layer_msgs(inp) unpacks to
+        # exactly new_msgs
         msgs[i, :E] = new_msgs
         for a, b in self._runs[i]:
             ix = rows[a:b].reshape(-1)

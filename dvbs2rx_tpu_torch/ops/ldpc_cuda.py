@@ -3,7 +3,9 @@
 Replaces ``dvbs2rx_tpu/ops/ldpc_pallas.py`` (``PallasLDPCDecoder`` and the
 Pallas kernel ``_build_kernel``). The kernel is ``csrc/ldpc_layered.cu``;
 its source note says what bounds it on the card and how the design answers.
-Its plain version is ``ops/ldpc.LDPCDecoder``.
+It keeps the check messages on chip, packed as ``ops/ldpc.pack_layer_msgs``
+documents, so the wrapper allocates nothing but the outputs. Its plain
+version is ``ops/ldpc.LDPCDecoder``.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain decoder; a CUDA tensor launches the kernel or raises (a failed build
@@ -13,9 +15,9 @@ or launch is never caught and replaced by the plain decoder).
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec.ldpc_tables import LDPCCode
-
 from .. import _build
+from ..spec.ldpc_tables import LDPCCode
+from ..utils.runtime import resolve_device
 from .ldpc import M, LDPCDecoder, layer_edges, write_runs
 
 LAUNCHES = 0     # kernel launches; incremented only where the kernel runs
@@ -38,18 +40,48 @@ def kernel_tables(code: LDPCCode):
     return tuple(np.asarray(x, np.int32) for x in (ptr, base, shift, sync))
 
 
+def packed_tables(code: LDPCCode) -> np.ndarray:
+    """The kernel's shared-memory tables as one int32 array: per layer
+    ``e0 | D << 16 | lsync << 24`` (first data edge, data edges, a block
+    named twice), per layer the barrier mask (bit c: ``sync`` of data edge
+    c), per data edge ``base | shift << 16``, then zeros (DM of them, and up
+    to a multiple of 4 entries) that the unrolled edge loops may read."""
+    ptr, base, shift, sync = (x.astype(np.int64) for x in kernel_tables(code))
+    D = np.diff(ptr)
+    if code.K >= 1 << 16 or ptr[-1] >= 1 << 16 or D.max() > 30:
+        raise ValueError(f"code {code.name} exceeds the kernel's tables")
+    q, dm = code.q, int(D.max())
+    smask = np.array([int((sync[a:b] << np.arange(b - a)).sum())
+                      for a, b in zip(ptr[:-1], ptr[1:])], np.int64)
+    info = ptr[:-1] | (D << 16) | ((smask != 0) << 24)
+    edge = base | (shift << 16)
+    n_tab = (2 * q + len(base) + dm + 3) & ~3
+    out = np.zeros(n_tab, np.int64)
+    out[: 2 * q + len(base)] = np.concatenate([info, smask, edge])
+    return out.astype(np.int32)
+
+
 class CudaLDPCDecoder:
     """Same call contract as ``ops.ldpc.LDPCDecoder`` (and the JAX
     ``PallasLDPCDecoder``): ``decode_lane_major`` (N, B) int8 -> (hard_t
     (N, B) uint8, llrsT (N, B) int8, iters int32 scalar = max over frames,
-    conv (B,) bool); ``__call__`` the same in (B, N) layout."""
+    conv (B,) bool); ``__call__`` the same in (B, N) layout. ``launch`` is
+    the kernel itself, with per-frame iteration counts.
+
+    The kernel works frame by frame, in (B, N) rows. ``decode_lane_major``
+    hands it ``llrsT.t()`` (no copy when the caller's (N, B) tensor is a
+    transposed view of rows, as the stream step's LLRs are) and returns its
+    outputs as (N, B) transposed views, not copies."""
 
     def __init__(self, code: LDPCCode, max_trials: int = 25, device=None):
         self.code = code
         self.max_trials = max_trials
-        self.device = torch.device(device)
-        self.max_deg = max(len(e) for e in layer_edges(code)) + 2
-        self._tables = None
+        self.device = resolve_device(device)
+        degrees = [len(e) for e in layer_edges(code)]
+        self.dm = max(degrees)                 # the kernel's template shape
+        self.var = min(degrees) != self.dm
+        self.n_edges = sum(degrees)
+        self._tables = {}
         self._plain = None
 
     def _plain_decoder(self):
@@ -57,50 +89,51 @@ class CudaLDPCDecoder:
             self._plain = LDPCDecoder(self.code, self.max_trials, "cpu")
         return self._plain
 
-    def _kernel_tables(self, device):
-        if self._tables is None:
-            self._tables = [
-                torch.as_tensor(t, device=device)
-                for t in kernel_tables(self.code)
-            ]
-        return self._tables
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA, from the built kernel library."""
+        return _build.lib().ldpc_layered_smem_bytes(
+            self.code.N, self.code.q, self.n_edges, self.dm)
 
     def decode_lane_major(self, llrsT):
         if not llrsT.is_cuda:
             return self._plain_decoder().decode_lane_major(llrsT)
-        return self._launch(llrsT.t().contiguous(), lane_major=True)
+        hard, out, iters, conv = self.launch(llrsT.t().contiguous())
+        return hard.t(), out.t(), iters.max(), conv
 
     def __call__(self, llrs):
         if not llrs.is_cuda:
             return self._plain_decoder()(llrs)
-        return self._launch(llrs.contiguous(), lane_major=False)
+        hard, out, iters, conv = self.launch(llrs.contiguous())
+        return hard, out, iters.max(), conv
 
-    def _launch(self, llrs, lane_major: bool):
-        """Launch the kernel on (B, N) int8 CUDA LLRs, one CTA per frame."""
+    def launch(self, llrs):
+        """Decode (B, N) int8 CUDA LLRs, one CTA per frame. Returns (hard
+        (B, N) uint8, llrs (B, N) int8, iterations (B,) int32 per frame,
+        converged (B,) bool)."""
         global LAUNCHES
         code = self.code
         B, N = llrs.shape
-        if llrs.dtype != torch.int8 or N != code.N or not llrs.is_contiguous():
-            raise ValueError(f"expected contiguous (B, {code.N}) int8 LLRs")
+        if (not llrs.is_cuda or llrs.dtype != torch.int8 or N != code.N
+                or not llrs.is_contiguous()):
+            raise ValueError(
+                f"expected contiguous (B, {code.N}) int8 CUDA LLRs")
+        if llrs.data_ptr() % 8:                 # the kernel reads 8-byte words
+            llrs = llrs.clone()
         dev = llrs.device
-        ptr, base, shift, sync = self._kernel_tables(dev)
+        tab = self._tables.get(dev)
+        if tab is None:
+            tab = self._tables[dev] = torch.as_tensor(packed_tables(code),
+                                                      device=dev)
         out = torch.empty_like(llrs)
         hard = torch.empty((B, N), dtype=torch.uint8, device=dev)
-        msgs = torch.empty((B, code.q, self.max_deg, M), dtype=torch.int8,
-                           device=dev)
         iters = torch.empty((B,), dtype=torch.int32, device=dev)
         conv = torch.empty((B,), dtype=torch.int32, device=dev)
         err = _build.lib().ldpc_layered_launch(
             llrs.data_ptr(), out.data_ptr(), hard.data_ptr(),
-            msgs.data_ptr(), iters.data_ptr(), conv.data_ptr(),
-            ptr.data_ptr(), base.data_ptr(), shift.data_ptr(),
-            sync.data_ptr(), B, N, code.K, code.q, self.max_deg,
-            self.max_trials, torch.cuda.current_stream(dev).cuda_stream,
+            iters.data_ptr(), conv.data_ptr(), tab.data_ptr(), B, N, code.K,
+            code.q, self.n_edges, self.dm, int(self.var), self.max_trials,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, "ldpc_layered_kernel")
         LAUNCHES += 1
-        it = iters.max()
-        if lane_major:
-            return hard.t().contiguous(), out.t().contiguous(), it, conv != 0
-        return hard, out, it, conv != 0
-
+        return hard, out, iters, conv != 0

@@ -18,9 +18,9 @@ import math
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec import reed_muller
-from dvbs2rx_tpu.spec.pi2_bpsk import map_bpsk
-from dvbs2rx_tpu.spec.pl_defs import (
+from ..spec import reed_muller
+from ..spec.pi2_bpsk import map_bpsk
+from ..spec.pl_defs import (
     PILOT_BLK_LEN,
     PILOT_BLK_PERIOD,
     PLHEADER_LEN,

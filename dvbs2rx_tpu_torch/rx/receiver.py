@@ -2,8 +2,8 @@
 
 Port of the parts of ``dvbs2rx_tpu/rx/receiver.py`` that the stream
 receiver uses: ``RxConfig``/``RxStats`` (same fields, defaults and
-``__post_init__``, built on ``dvbs2rx_tpu.spec``; the JAX module imports
-jax, so its classes cannot be imported), the post-decoder SNR refinement,
+``__post_init__``, built on the port's own ``spec``), the post-decoder
+SNR refinement,
 the acquisition metric, ``get_stats``, and ``FECStage``: the lane-major FEC
 stage ``Receiver._fec_stage_lane_major_impl`` (LDPC -> BCH -> byte packing)
 with the tables ``StreamReceiver`` takes from ``Receiver``. The host
@@ -17,17 +17,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dvbs2rx_tpu.spec.constellations import constellation_points
-from dvbs2rx_tpu.spec.fec_params import (
+from ..spec.constellations import constellation_points
+from ..spec.fec_params import (
     DVBS2_MODCODS,
     MODCOD_NUMBERS,
     FECInfo,
     get_fec_info,
 )
-from dvbs2rx_tpu.spec.interleaver import column_order
-from dvbs2rx_tpu.spec.ldpc_tables import get_code
-from dvbs2rx_tpu.spec.pls import PLSInfo, make_pls, parse_pls
-from dvbs2rx_tpu.spec.scramblers import (
+from ..spec.interleaver import column_order
+from ..spec.ldpc_tables import get_code
+from ..spec.pls import PLSInfo, make_pls, parse_pls
+from ..spec.scramblers import (
     bb_derandomizer_bytes,
     pl_descrambling_sequence,
 )
@@ -35,7 +35,7 @@ from dvbs2rx_tpu.spec.scramblers import (
 from ..ops import cplx, plsync
 from ..ops.bch import BCHDecoder
 from ..ops.ldpc_cuda import CudaLDPCDecoder
-from ..utils.runtime import device_table
+from ..utils.runtime import device_table, resolve_device
 
 
 @dataclass
@@ -225,7 +225,7 @@ class FECStage:
                 "the port decodes offset-min-sum with the normal update only"
             )
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         info = cfg.pls_info
         self.frame_len = info.plframe_len
         self.payload_len = info.payload_len

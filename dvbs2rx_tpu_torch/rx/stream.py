@@ -13,7 +13,7 @@ stats`` over every channel at once, composing:
 - per-lane PL sync, descrambling and demap (``parallel.batch.make_lane_fn``);
 - layered LDPC (``csrc/ldpc_layered.cu`` on the card), BCH, byte packing;
 - device CRC-8 validity (``ops.crc8_dev.packet_validity``);
-- the host TS stitch (``dvbs2rx_tpu.spec.bb_frame.BatchTSStitcher``).
+- the host TS stitch (``spec.bb_frame.BatchTSStitcher``).
 
 JAX jits and donates the step; PyTorch runs it eagerly. The step is
 functional: it returns a new state dict and never writes the tensors of
@@ -41,6 +41,8 @@ from ..ops.demap import quantize_llrs
 from ..ops.ffsync import FeedForwardSync, FFSyncState
 from ..ops.frontend import rotate_block
 from ..parallel.batch import make_lane_fn
+from ..spec.bb_frame import BatchTSStitcher
+from ..spec.scramblers import bb_derandomizer_bytes
 from ..utils.runtime import resolve_device
 from .receiver import (
     FECStage,
@@ -476,9 +478,6 @@ class StreamEngine:
 
     def __init__(self, cfg: RxConfig, n_channels: int = 1,
                  frames_per_step: int = 2, device=None):
-        from dvbs2rx_tpu.spec.bb_frame import BatchTSStitcher
-        from dvbs2rx_tpu.spec.scramblers import bb_derandomizer_bytes
-
         self.cfg = cfg
         self.sr = StreamReceiver(cfg, n_channels=n_channels,
                                  frames_per_step=frames_per_step,

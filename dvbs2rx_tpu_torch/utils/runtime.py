@@ -24,14 +24,13 @@ def exact_fp32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def resolve_device(device) -> torch.device:
-    """An explicit device: no implicit CUDA and no silent CPU.
-
-    Raises if ``device`` is None or names CUDA without a usable card.
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU. ``None`` means ``"cuda"``; ``"cpu"`` is the only way to
+    the CPU. A CUDA device without a usable card raises ``RuntimeError``
+    (never a silent fall back to the CPU).
     """
-    if device is None:
-        raise ValueError("pass an explicit device ('cpu' or 'cuda')")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is unavailable")

@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from dvbs2rx_tpu.spec import bch_spec
-from dvbs2rx_tpu.spec.ldpc_tables import get_code
-from dvbs2rx_tpu.tx import Transmitter, TxConfig, awgn_channel
+from dvbs2rx_tpu_torch.spec import bch_spec
+from dvbs2rx_tpu_torch.spec.ldpc_tables import available_tables, get_code
+from dvbs2rx_tpu_torch.tx import Transmitter, TxConfig, awgn_channel
 
 from dvbs2rx_tpu_torch.convert import state_to_numpy, state_from_numpy
 from dvbs2rx_tpu_torch.ops import cplx, fir_cuda, ldpc_cuda
@@ -76,6 +76,11 @@ def _llrs(code, B, kind, seed):
     ("S2_C4", 8, "random", 4), ("S2_C4", 8, "converging", 10),
     ("S2_C1", 5, "random", 3), ("S2_C10", 3, "converging", 25),
     ("S2_B4", 6, "converging", 25),
+    ("S2_B4", 128, "converging", 25),    # the main path's batch
+    ("S2_B1", 16, "converging", 25),     # the tightest shared-memory
+    ("S2_B2", 16, "converging", 25),     # layouts (3-byte words)
+    ("S2_B11", 8, "random", 4),          # 8-byte words, E = 30
+    ("S2X_C7", 8, "converging", 25),     # 4-byte words
 ])
 def test_ldpc_kernel_matches_plain(card, table, B, kind, trials):
     code = get_code(table)
@@ -92,6 +97,19 @@ def test_ldpc_kernel_matches_plain(card, table, B, kind, trials):
     for g, w in zip(rows, LDPCDecoder(code, trials, "cpu")(
             torch.from_numpy(llrs))):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("table", available_tables())
+def test_ldpc_kernel_matches_plain_on_every_table(card, table):
+    """Every code table, so every template shape of the kernel (largest
+    data degree, variable degrees, 3-, 4- and 8-byte message words) runs
+    once against the plain decoder on the card."""
+    code = get_code(table)
+    x = torch.from_numpy(_llrs(code, 3, "converging", seed=1)).to(card)
+    got = ldpc_cuda.CudaLDPCDecoder(code, 25, card)(x)
+    want = LDPCDecoder(code, 25, card)(x)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
 def test_bch_and_crc_on_card_match_cpu(card):

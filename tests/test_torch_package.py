@@ -1,13 +1,18 @@
 """Package rules of the PyTorch/CUDA port.
 
-- Importing every ``dvbs2rx_tpu_torch`` module (in a fresh interpreter)
-  leaves ``jax`` out of ``sys.modules``, and needs no nvcc.
+- Importing every ``dvbs2rx_tpu_torch`` module and ``chip_smoke.py`` (in a
+  fresh interpreter) leaves ``jax`` and every ``dvbs2rx_tpu`` module out of
+  ``sys.modules``, and needs no nvcc; ``chip_smoke.py`` has no import of
+  the JAX package anywhere in its source.
+- Entry points default to the card: ``resolve_device(None)`` is CUDA, and
+  raises ``RuntimeError`` without one.
 - The port's ``RxConfig``/``RxStats`` have the JAX classes' field names and
   defaults, and ``__post_init__`` derives the same values.
 - ``convert`` carries state dtype for dtype, and ``tables_from_spec``
   gives the tables the port's modules use.
 """
 
+import ast
 import dataclasses
 import pkgutil
 import subprocess
@@ -25,6 +30,7 @@ from dvbs2rx_tpu.rx.stream import StreamReceiver as JStreamReceiver
 from dvbs2rx_tpu_torch import convert
 from dvbs2rx_tpu_torch.rx import receiver
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
+from dvbs2rx_tpu_torch.utils.runtime import resolve_device
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,10 +49,11 @@ def test_every_module_imports_without_jax():
     assert "dvbs2rx_tpu_torch.rx.stream" in mods
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.') or k.startswith('jaxlib'))\n"
+        "k.startswith('jax.') or k.startswith('jaxlib') or "
+        "k == 'dvbs2rx_tpu' or k.startswith('dvbs2rx_tpu.'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -69,9 +76,12 @@ def test_config_fields_and_defaults_match_jax(name):
                                 {"modcod": "qpsk1/2", "frame_size": "short"}])
 def test_config_post_init_matches_jax(kw):
     a, b = jreceiver.RxConfig(**kw), receiver.RxConfig(**kw)
-    for attr in ("modcod_num", "constellation", "rate", "pls", "pls_info",
-                 "fec"):
+    for attr in ("modcod_num", "constellation", "rate", "pls"):
         assert getattr(a, attr) == getattr(b, attr), attr
+    # the port's spec dataclasses are its own copies: compare field by field
+    for attr in ("pls_info", "fec"):
+        assert dataclasses.asdict(getattr(a, attr)) == \
+            dataclasses.asdict(getattr(b, attr)), attr
     with pytest.raises(ValueError):
         receiver.RxConfig(modcod="qpsk9/9")
     with pytest.raises(ValueError):
@@ -117,5 +127,30 @@ def test_cuda_device_without_card_raises():
         StreamReceiver(receiver.RxConfig(modcod="qpsk1/2",
                                          frame_size="short"),
                        n_channels=1, device="cuda")
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         StreamReceiver(receiver.RxConfig(), n_channels=1, device=None)
+
+
+def test_resolve_device_defaults_to_the_card():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        resolve_device("cuda:0")
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "dvbs2rx_tpu_torch.tx" in names      # the stimulus is the port's
+    bad = [n for n in names if n == "dvbs2rx_tpu"
+           or n.startswith("dvbs2rx_tpu.") or n.split(".")[0] == "jax"]
+    assert not bad, bad

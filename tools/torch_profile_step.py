@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the port's bare stream step on one GPU.
+
+    python3 tools/torch_profile_step.py [--steps 3]
+
+Builds chip_smoke.py's main-path configuration (64 channels, QPSK 1/2
+normal pilotless at Es/N0 6 dB, 2 frames per step) and its stimulus,
+primes a ``StreamReceiver``, puts every input block on the card, runs two
+warm-up steps, ``--steps`` timed steps (host clock, ending in a
+synchronise) and ``--steps`` more under ``torch.profiler``. Prints the
+bare step's wall time, the device busy time per step (the sum of the
+kernels' device times; one stream, so they do not overlap) and the idle
+share of the bare step, and the kernels by device time with their share
+(kernel events only). Needs one CUDA card.
+"""
+
+import argparse
+import sys
+import time
+import types
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from dvbs2rx_tpu_torch.ops import cplx
+    from dvbs2rx_tpu_torch.rx.receiver import RxConfig
+    from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch_profile_step needs a CUDA card")
+    print(chip_smoke._smi(), flush=True)
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
+    sr = StreamReceiver(cfg, n_channels=chip_smoke.C,
+                        frames_per_step=chip_smoke.F, device="cuda")
+    iq, _ = chip_smoke._stimulus(types.SimpleNamespace(sr=sr))
+    n_steps = 2 + 2 * args.steps
+    if sr._n_fe + n_steps * sr.n_in > iq.shape[1]:
+        raise ValueError("stimulus too short for that many steps")
+    state = sr.prime(iq[:, : sr._n_fe])
+    blocks = [
+        sr.put_iq(cplx.from_np(
+            iq[:, sr._n_fe + t * sr.n_in: sr._n_fe + (t + 1) * sr.n_in]
+        ).astype(np.float32))
+        for t in range(n_steps)
+    ]
+    for t in range(2):
+        state, _, _ = sr.step(state, blocks[t])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(2, 2 + args.steps):
+        state, _, _ = sr.step(state, blocks[t])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / args.steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(2 + args.steps, n_steps):
+            state, _, st = sr.step(state, blocks[t])
+        torch.cuda.synchronize()
+    if not bool(st["locked"].all()) or int(st["bch_errors"]) != 0:
+        raise AssertionError("profiled steps lost lock or had BCH errors")
+    # kernels only: an operator's row repeats the time of its kernels
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    if busy == 0:
+        raise RuntimeError("the profiler saw no device time")
+    busy_ms = busy / 1e3 / args.steps
+    print(f"bare step wall {wall * 1e3:.3f} ms ({args.steps} steps); device "
+          f"busy {busy_ms:.3f} ms/step ({args.steps} profiled steps); idle "
+          f"{1 - busy_ms / (wall * 1e3):.1%} of the bare step")
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:15]:
+        print(f"  {us / 1e3:9.3f} ms {us / busy:6.1%} {n:6d} launches  "
+              f"{key[:90]}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())
