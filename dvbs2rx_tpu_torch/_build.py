@@ -35,7 +35,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # stream, c_int for each int (ctypes would otherwise cut a pointer to 32
 # bits)
 _SIGNATURES = {
-    "mf_segmented_launch": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "mf_segmented_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "mf_segmented_smem_bytes": [_I] * 2,
+    "mf_segmented_grid_blocks": [_I] * 2,
     "ldpc_layered_launch": [_P] * 6 + [_I] * 8 + [_P],
     "ldpc_layered_smem_bytes": [_I] * 4,
 }

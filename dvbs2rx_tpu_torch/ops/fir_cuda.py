@@ -3,9 +3,11 @@
 Replaces ``dvbs2rx_tpu/ops/pallas_fir.py`` (``mf_segmented``,
 ``mf_decimate`` and the Pallas kernel ``_seg_kernel``). The kernel is
 ``csrc/mf_segmented.cu``; its source note says what bounds it on the card
-(memory: ~66 MB of samples read per 64-channel stream step) and how the
-design answers. ``mf_segmented_plain`` is its plain version: a strided
-window (``unfold``) times the taps in float32.
+(memory: ~100 MB moved per 64-channel stream step) and how the design
+answers. ``mf_segmented_plain`` is its plain version: a strided window
+(``unfold``) times the taps in float32. ``launch_plan`` cuts the call into
+the kernel's work items (channel, segment, chunk) and sizes its
+shared-memory ring.
 
 The JAX front end keeps its Pallas kernel off by default and runs an XLA
 grouped convolution; the port runs this kernel on the card instead (cuDNN
@@ -17,11 +19,60 @@ Dispatch is by the tensor's device: CPU tensors take the plain version;
 CUDA tensors launch the kernel or raise.
 """
 
+from dataclasses import dataclass
+
 import torch
 
 from .. import _build
 
 LAUNCHES = 0     # kernel launches; incremented only where the kernel runs
+
+# kThreads, kR, kStages, kMaxTaps and the tap buckets of
+# csrc/mf_segmented.cu
+THREADS, OUTPUTS_PER_THREAD, STAGES, MAX_TAPS = 128, 8, 2, 64
+CHUNK_MAX = THREADS * OUTPUTS_PER_THREAD
+SMEM_LIMIT = 232_448        # shared memory one block may use on Hopper
+
+
+def _padded(v):
+    """Shared-memory slot of 16-byte vector v (one pad slot per 8)."""
+    return v + (v >> 3)
+
+
+@dataclass(frozen=True)
+class MFPlan:
+    """How one ``mf_segmented`` call is cut for the kernel: ``items`` work
+    items, (channel, segment, chunk) in that order, of ``chunk`` outputs
+    (the last chunk of a segment holds the rest), taps zero-padded to
+    ``lmax``, and a ring of ``STAGES`` window stages of ``stage_vectors``
+    16-byte vectors each."""
+    lmax: int
+    chunk: int
+    n_chunks: int
+    items: int
+    stage_vectors: int
+    smem_bytes: int
+
+
+def launch_plan(C, S, seg_len, L, sps):
+    """The kernel's work items and shared memory for one call (mirrors
+    ``stage_vectors`` and ``smem_bytes`` of the source)."""
+    if not 1 <= L <= MAX_TAPS:
+        raise ValueError(f"{L} taps: the kernel takes 1..{MAX_TAPS}")
+    if sps < 1:
+        raise ValueError(f"sps {sps} must be a positive integer")
+    lmax = 24 if L <= 24 else MAX_TAPS
+    n_chunks = -(-seg_len // CHUNK_MAX)
+    chunk = -(-seg_len // n_chunks)
+    chunk = min(chunk + chunk % 2, CHUNK_MAX)    # even: 16-byte output rows
+    n_chunks = -(-seg_len // chunk)
+    nv = (2 + sps * (CHUNK_MAX - 1) + lmax) // 2
+    smem = 16 * (STAGES * _padded(nv) + _padded(CHUNK_MAX // 2)
+                 + STAGES * lmax // 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"sps {sps}: the window ring needs {smem} B of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return MFPlan(lmax, chunk, n_chunks, C * S * n_chunks, nv, smem)
 
 
 def _check(samples, taps_seg, base_seg, sps, seg_len, off_bound):
@@ -74,6 +125,7 @@ def mf_segmented(samples, taps_seg, base_seg, sps, seg_len, off_bound):
                                   off_bound)
     C, n, _ = samples.shape
     S, L = taps_seg.shape[1], taps_seg.shape[2]
+    plan = launch_plan(C, S, seg_len, L, sps)
     x = samples.contiguous()
     if x.data_ptr() % 8:
         raise ValueError("samples must be 8-byte aligned (float2 reads)")
@@ -83,7 +135,7 @@ def mf_segmented(samples, taps_seg, base_seg, sps, seg_len, off_bound):
                     device=samples.device)
     err = _build.lib().mf_segmented_launch(
         x.data_ptr(), taps.data_ptr(), base.data_ptr(), y.data_ptr(),
-        C, n, S, seg_len, L, sps, off_bound,
+        C, n, S, seg_len, L, sps, off_bound, plan.chunk, plan.n_chunks,
         torch.cuda.current_stream(samples.device).cuda_stream,
     )
     _build.check(err, "mf_segmented_kernel")

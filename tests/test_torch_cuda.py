@@ -9,7 +9,8 @@ import jax, so run it there as
 
 Tolerances: the LDPC kernel and every integer output of the stream step
 are bit-exact; the matched filter within 1e-5 absolute on unit-variance
-inputs with 21 taps (float32 sums in another order); the stream step's
+inputs with 1 to 64 taps scaled by 1/sqrt(L) (float32 sums in another
+order); the stream step's
 float statistics within rtol 1e-4 (card vs CPU float32 arithmetic).
 """
 
@@ -60,6 +61,83 @@ def test_mf_kernel_matches_plain(card, C, S, seg_len, L, off):
     assert fir_cuda.LAUNCHES == before + 1
     want = fir_cuda.mf_segmented_plain(x, taps, base, 2, seg_len, off)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _mf_inputs(card, C, S, seg_len, L, sps, off, odd_n, seed):
+    rng = np.random.default_rng(seed)
+    n = (S * seg_len - 1) * sps + L + off + 3
+    n += (n % 2) != odd_n
+    assert n % 2 == odd_n
+    x = torch.from_numpy(rng.normal(size=(C, n, 2)).astype(np.float32)).to(card)
+    taps = torch.from_numpy(
+        (rng.normal(size=(C, S, L)) / np.sqrt(L)).astype(np.float32)).to(card)
+    base = torch.from_numpy(
+        rng.integers(-3, off + 4, (C, S)).astype(np.int32)).to(card)
+    return x, taps, base
+
+
+def _mf_one_launch(*args):
+    before = fir_cuda.LAUNCHES
+    got = fir_cuda.mf_segmented(*args)
+    assert fir_cuda.LAUNCHES == before + 1
+    return got
+
+
+@pytest.mark.parametrize("C,S,seg_len,L,sps,odd_n", [
+    (3, 4, 500, 21, 2, 1),      # odd n: odd rows start 8 B off 16 B
+    (4, 6, 13, 21, 2, 1),       # seg_len under one chunk, not a multiple of 8
+    (2, 3, 2051, 21, 2, 0),     # three chunks, ragged last, odd seg_len
+    (2, 5, 1001, 37, 2, 1),     # odd seg_len: 8-byte output stores
+    (2, 3, 700, 64, 2, 0),      # the largest filter
+    (2, 4, 300, 1, 2, 1),       # one tap
+    (3, 4, 500, 21, 3, 0),      # the generic body
+    (2, 3, 999, 64, 3, 1),
+    (2, 2, 400, 11, 1, 1),
+    (16, 15, 3000, 21, 2, 0),   # more items than the persistent grid
+])
+def test_mf_redesign_cases_match_plain(card, C, S, seg_len, L, sps, odd_n):
+    off = 23
+    x, taps, base = _mf_inputs(card, C, S, seg_len, L, sps, off, odd_n,
+                               seed=seg_len + L)
+    plan = fir_cuda.launch_plan(C, S, seg_len, L, sps)
+    lib = fir_cuda._build.lib()
+    assert lib.mf_segmented_smem_bytes(L, sps) == plan.smem_bytes
+    grid = lib.mf_segmented_grid_blocks(L, sps)
+    assert grid > 0
+    if C == 16:
+        assert plan.items > grid
+    got = _mf_one_launch(x, taps, base, sps, seg_len, off)
+    want = fir_cuda.mf_segmented_plain(x, taps, base, sps, seg_len, off)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_mf_kernel_takes_a_noncontiguous_view(card):
+    C, S, seg_len, L, off = 3, 4, 500, 21, 23
+    x, taps, base = _mf_inputs(card, C, S, seg_len, L, 2, off, 1, seed=4)
+    view = x.transpose(1, 2).contiguous().transpose(1, 2)  # (C, n, 2) view
+    assert not view.is_contiguous()
+    got = _mf_one_launch(view, taps, base, 2, seg_len, off)
+    want = fir_cuda.mf_segmented_plain(x, taps, base, 2, seg_len, off)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2100, 2101])
+def test_mf_decimate_on_card_with_upper_clip(card, n):
+    """S = 1 through ``mf_decimate``: every start up to and past the clip
+    at n - n_out*sps - L + 1."""
+    rng = np.random.default_rng(n)
+    C, n_out, L = 4, 1000, 21
+    x = torch.from_numpy(rng.normal(size=(C, n, 2)).astype(np.float32))
+    taps = torch.from_numpy(
+        (rng.normal(size=(C, L)) / np.sqrt(L)).astype(np.float32))
+    top = n - n_out * 2 - L + 1
+    base = torch.tensor([0, 7, top, top + 50], dtype=torch.int32)
+    want = fir_cuda.mf_decimate(x, taps, base, 2, n_out)
+    before = fir_cuda.LAUNCHES
+    got = fir_cuda.mf_decimate(x.to(card), taps.to(card), base.to(card), 2,
+                               n_out)
+    assert fir_cuda.LAUNCHES == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
 def _llrs(code, B, kind, seed):

@@ -87,3 +87,95 @@ def test_short_history_raises():
                               torch.from_numpy(taps), torch.from_numpy(base),
                               SPS, 10, OFF)
 
+
+def _item_windows(plan, C, S, seg_len, L, sps, base_seg, off_bound, n):
+    """Each work item's window in the kernel's arithmetic, item order:
+    (c, s, k0, cnt, first, end, aligned). Outputs k0 .. k0+cnt-1 of
+    segment s read samples [first, end) of row c; the fetch starts at
+    ``aligned``, first rounded down to an even sample of the whole (C, n)
+    tensor (16 bytes, for a 16-byte-aligned tensor)."""
+    it = torch.arange(plan.items)
+    c = it // (S * plan.n_chunks)
+    s = it // plan.n_chunks % S
+    k0 = it % plan.n_chunks * plan.chunk
+    cnt = torch.clamp(seg_len - k0, max=plan.chunk)
+    off = base_seg.to(torch.int64).clamp(0, off_bound)[c, s]
+    first = s * seg_len * sps + off + sps * k0
+    end = first + sps * (cnt - 1) + L
+    aligned = first - (c * n + first) % 2
+    return c, s, k0, cnt, first, end, aligned
+
+
+# (C, S, seg_len, L, sps): the main path, ragged and tiny segments, one
+# segment, the longest filter, the generic sps
+PLAN_SHAPES = [
+    (64, 15, 4332, 21, 2),
+    (3, 15, 333, 21, 2),
+    (2, 4, 1025, 37, 2),
+    (2, 3, 7, 21, 2),
+    (2, 1, 1000, 64, 2),
+    (3, 2, fir_cuda.CHUNK_MAX, 24, 2),
+    (2, 5, 999, 21, 3),
+    (1, 2, 2500, 64, 5),
+]
+
+
+@pytest.mark.parametrize("C,S,seg_len,L,sps", PLAN_SHAPES)
+def test_launch_plan_covers_every_output_once(C, S, seg_len, L, sps):
+    plan = fir_cuda.launch_plan(C, S, seg_len, L, sps)
+    assert 0 < plan.chunk <= fir_cuda.CHUNK_MAX and plan.chunk % 2 == 0
+    c, s, k0, cnt, *_ = _item_windows(plan, C, S, seg_len, L, sps,
+                                      torch.zeros(C, S), 0, 1)
+    assert bool((cnt > 0).all())
+    hits = torch.zeros(C, S * seg_len, dtype=torch.int64)
+    for ci, si, ki, ni in zip(c.tolist(), s.tolist(), k0.tolist(),
+                              cnt.tolist()):
+        hits[ci, si * seg_len + ki: si * seg_len + ki + ni] += 1
+    assert bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("odd", [0, 1])
+@pytest.mark.parametrize("C,S,seg_len,L,sps", PLAN_SHAPES)
+def test_launch_plan_windows_fit_input_and_stage(C, S, seg_len, L, sps, odd):
+    """At the shortest history the wrapper accepts (and one sample more, so
+    that rows start off a 16-byte boundary), every window lies inside its
+    row, the aligned fetch starts at most one sample early, and the
+    window, shifted by that sample, fits one ring stage."""
+    off_bound = 23
+    n = (S * seg_len - 1) * sps + L + off_bound + odd
+    plan = fir_cuda.launch_plan(C, S, seg_len, L, sps)
+    rng = np.random.default_rng(seg_len)
+    base = torch.from_numpy(rng.integers(-5, off_bound + 6, (C, S)))
+    base[0, -1] = off_bound + 9                # the clip at the last window
+    *_, first, end, aligned = _item_windows(plan, C, S, seg_len, L, sps,
+                                            base, off_bound, n)
+    assert bool((first >= 0).all()) and bool((end <= n).all())
+    assert bool(((first - aligned >= 0) & (first - aligned <= 1)).all())
+    assert int(end.max()) == n - odd
+    assert bool(((end - aligned + 1) // 2 <= plan.stage_vectors).all())
+
+
+@pytest.mark.parametrize("C,S,seg_len,L,sps", PLAN_SHAPES)
+def test_launch_plan_ring_fits_shared_memory(C, S, seg_len, L, sps):
+    plan = fir_cuda.launch_plan(C, S, seg_len, L, sps)
+    assert plan.lmax >= L and plan.lmax % 4 == 0
+    assert plan.smem_bytes <= fir_cuda.SMEM_LIMIT
+    # the whole chunk's window of the widest item, with the shift, fits
+    need = (1 + sps * (fir_cuda.CHUNK_MAX - 1) + plan.lmax + 1) // 2
+    assert plan.stage_vectors >= need
+
+
+def test_launch_plan_at_the_main_path_shape():
+    """64 channels x 15 segments x 4,332 symbols, 21 taps, sps 2: five
+    chunks of 868 per segment and a ring under the 48 KB that needs no
+    opt-in."""
+    plan = fir_cuda.launch_plan(64, 15, 4332, 21, 2)
+    assert (plan.lmax, plan.chunk, plan.n_chunks, plan.items) == \
+        (24, 868, 5, 4800)
+    assert plan.smem_bytes == 46_688 < 48 * 1024
+
+
+@pytest.mark.parametrize("L,sps", [(65, 2), (21, 0), (21, 13)])
+def test_launch_plan_rejects_what_the_kernel_cannot_take(L, sps):
+    with pytest.raises(ValueError):
+        fir_cuda.launch_plan(2, 3, 100, L, sps)
