@@ -9,6 +9,12 @@ leading channel axis.
 - ``state_from_numpy`` / ``state_to_numpy`` map that dict to the port's
   state tensors and back, dtype for dtype (bool stays bool), so a test can
   prime the JAX receiver and step both receivers from the same state.
+- ``vcm_state_from_numpy`` / ``vcm_state_to_numpy`` do the same for the
+  ``VCMStreamReceiver`` state (``dvbs2rx_tpu/rx/vcm_stream.py:256-294``),
+  whose symbol ring and FEC queues the port keeps transposed: the ring
+  planar (C, N_SYM, 2) where JAX has it rail-major (C, 2, N_SYM), the LLR
+  and symbol-snapshot queues one frame per row (S, CAP, N) where JAX has
+  them lane-major (S, N, CAP).
 - ``tables_from_spec`` gathers the constant tables of one configuration
   as device tensors, from the same builders the port's modules use.
 """
@@ -37,6 +43,24 @@ def state_from_numpy(state_np: dict, device) -> dict:
 def state_to_numpy(state: dict) -> dict:
     """Inverse of ``state_from_numpy``."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+# VCM state leaves whose port layout swaps the JAX layout's last two axes
+VCM_TRANSPOSED = ("symbuf", "qllr", "qxf")
+
+
+def vcm_state_from_numpy(state_np: dict, device) -> dict:
+    """JAX-layout VCM state dict (numpy leaves) -> the port's tensors."""
+    return state_from_numpy(
+        {k: np.swapaxes(np.asarray(v), -1, -2) if k in VCM_TRANSPOSED
+         else v for k, v in state_np.items()}, device)
+
+
+def vcm_state_to_numpy(state: dict) -> dict:
+    """Inverse of ``vcm_state_from_numpy``: the JAX layout, as numpy."""
+    out = state_to_numpy(state)
+    return {k: np.ascontiguousarray(np.swapaxes(v, -1, -2))
+            if k in VCM_TRANSPOSED else v for k, v in out.items()}
 
 
 def tables_from_spec(cfg, device) -> dict:

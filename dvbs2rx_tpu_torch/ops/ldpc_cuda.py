@@ -20,7 +20,14 @@ from ..spec.ldpc_tables import LDPCCode
 from ..utils.runtime import resolve_device
 from .ldpc import M, LDPCDecoder, layer_edges, write_runs
 
-LAUNCHES = 0     # kernel launches; incremented only where the kernel runs
+LAUNCHES_BY_CODE = {}   # kernel launches by code table name; incremented
+                        # only where the kernel runs
+
+
+def __getattr__(name):
+    if name == "LAUNCHES":      # the kernel's launches over every code
+        return sum(LAUNCHES_BY_CODE.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def kernel_tables(code: LDPCCode):
@@ -110,7 +117,6 @@ class CudaLDPCDecoder:
         """Decode (B, N) int8 CUDA LLRs, one CTA per frame. Returns (hard
         (B, N) uint8, llrs (B, N) int8, iterations (B,) int32 per frame,
         converged (B,) bool)."""
-        global LAUNCHES
         code = self.code
         B, N = llrs.shape
         if (not llrs.is_cuda or llrs.dtype != torch.int8 or N != code.N
@@ -135,5 +141,5 @@ class CudaLDPCDecoder:
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, "ldpc_layered_kernel")
-        LAUNCHES += 1
+        LAUNCHES_BY_CODE[code.name] = LAUNCHES_BY_CODE.get(code.name, 0) + 1
         return hard, out, iters, conv != 0

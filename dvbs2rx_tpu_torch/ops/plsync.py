@@ -3,8 +3,9 @@
 Port of ``dvbs2rx_tpu/ops/plsync.py`` (reference ``lib/pl_frame_sync.cc``,
 ``lib/pl_freq_sync.cc``): the dense SOF/PLSC timing metric, the per-frame
 metric, the coarse CFO autocorrelation and its finalisation, the PLHEADER
-and pilot phases, both fine-CFO estimators and both payload corrections.
-The PLSC decode modes come later. The correlator taps are derived here from
+and pilot phases, both fine-CFO estimators, both payload corrections and
+the three PLSC decode modes (reference ``lib/pl_signaling.cc``) with the
+PLHEADER derotation before them. The correlator taps are derived here from
 the spec's SOF bits, PLSC scrambler and Reed-Muller codewords exactly as
 the JAX module derives them (that module imports jax, so its numpy table
 code cannot be imported).
@@ -30,6 +31,7 @@ from ..spec.pl_defs import (
     SLOTS_PER_PILOT_BLK,
     SOF_BITS,
     SOF_LEN,
+    SQRT2_2,
 )
 
 from ..utils.runtime import device_table
@@ -161,6 +163,84 @@ def frame_metric(d_frame):
     plsc_c = cplx.cmul(d_frame, kp).sum(dim=-2)
     return torch.maximum(torch.sqrt(cplx.abs2(sof_c + plsc_c)),
                          torch.sqrt(cplx.abs2(sof_c - plsc_c)))
+
+
+# ---------------- PLSC decoding ----------------
+
+@functools.lru_cache(maxsize=1)
+def _rm_images():
+    return reed_muller.scrambled_euclidean_images()
+
+
+@functools.lru_cache(maxsize=1)
+def _pi2_derot_factors():
+    rot = np.where(
+        (np.arange(PLSC_LEN) + SOF_LEN) % 2 == 0,
+        np.complex64(SQRT2_2 - 1j * SQRT2_2),
+        np.complex64(-SQRT2_2 - 1j * SQRT2_2),
+    )
+    return cplx.from_np(rot)
+
+
+def _ml_decode(pm, enabled_mask):
+    """(..., 64) real PLSC values -> (argmax index int32, scores (..., 128))
+    against the scrambled codeword images; outside ``enabled_mask`` ((128,)
+    bool) a score is -inf. Ties go to the first index, as ``jnp.argmax``."""
+    scores = torch.matmul(pm, _t(_rm_images(), pm).t())
+    if enabled_mask is not None:
+        scores = torch.where(enabled_mask, scores, float("-inf"))
+    return scores.argmax(dim=-1).to(torch.int32), scores
+
+
+def _derotated_plsc(plheader):
+    """Real part of the PLSC symbols after the pi/2-BPSK derotation."""
+    rot = _t(_pi2_derot_factors(), plheader)
+    return cplx.cmul(plheader[..., SOF_LEN:, :], rot)[..., 0]
+
+
+def plsc_decode_soft(plheader, enabled_mask=None):
+    """Soft-ML decode of the PLSC from the 90-symbol planar PLHEADER
+    (..., 90, 2). Returns (plsc index, correlation scores)."""
+    return _ml_decode(_derotated_plsc(plheader), enabled_mask)
+
+
+def plsc_decode_hard(plheader, enabled_mask=None):
+    """Coherent-hard decode (reference ``pl_signaling.cc:140``): the signs of
+    the derotated PLSC symbols against the same images (score = 64 - 2 x
+    Hamming distance)."""
+    soft = _derotated_plsc(plheader)
+    return _ml_decode(torch.where(soft < 0, -1.0, 1.0), enabled_mask)
+
+
+def plsc_decode_diff(plheader, enabled_mask=None):
+    """Differential-hard decode robust to large CFO (reference
+    ``pl_signaling.cc:142``): differential demap seeded by the last SOF
+    symbol, then hard ML decode of the still-scrambled bits."""
+    syms = plheader[..., SOF_LEN - 1:, :]               # (..., 65, 2)
+    d = cplx.conj_mul(syms[..., 1:, :], syms[..., :-1, :])
+    odd = torch.arange(PLSC_LEN, device=plheader.device) & 1
+    flips = (d[..., 1] < 0).to(torch.int64) ^ odd
+    bits = torch.cumsum(flips, dim=-1) & 1              # running XOR
+    return _ml_decode((1 - 2 * bits).to(torch.float32), enabled_mask)
+
+
+def sof_phase(plheader):
+    """Header phase from the 26 known SOF symbols."""
+    return data_aided_phase(plheader[..., :SOF_LEN, :],
+                            _t(plheader_conj_lut(), plheader)[0, :SOF_LEN])
+
+
+def derotate_plheader(plheader, foffset, apply_freq):
+    """PLHEADER derotation before PLSC decoding (reference
+    ``pl_freq_sync.cc:351-437``): the frequency ramp of ``foffset`` over the
+    90 symbols when ``apply_freq`` (open loop only), then the SOF phase.
+    ``foffset`` is a Python float and ``apply_freq`` a bool."""
+    n = torch.arange(PLHEADER_LEN, dtype=torch.float32, device=plheader.device)
+    # float32 product, as the JAX expression rounds it
+    w = np.float32(2 * math.pi) * np.float32(foffset) if apply_freq else 0
+    ph = float(w) * n
+    hdr = cplx.cmul(plheader, cplx.cexp(-ph))
+    return cplx.cmul(hdr, cplx.cexp(-sof_phase(hdr))[..., None, :])
 
 
 def mod_removed_plheader(plheader, plsc):

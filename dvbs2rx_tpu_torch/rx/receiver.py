@@ -4,9 +4,11 @@ Port of the parts of ``dvbs2rx_tpu/rx/receiver.py`` that the stream
 receiver uses: ``RxConfig``/``RxStats`` (same fields, defaults and
 ``__post_init__``, built on the port's own ``spec``), the post-decoder
 SNR refinement,
-the acquisition metric, ``get_stats``, and ``FECStage``: the lane-major FEC
-stage ``Receiver._fec_stage_lane_major_impl`` (LDPC -> BCH -> byte packing)
-with the tables ``StreamReceiver`` takes from ``Receiver``. The host
+the acquisition metric, ``get_stats``, the per-code FEC decoder factories
+(``get_ldpc_decoder``, the counterpart of ``_make_ldpc_decoder``, and
+``get_bch_decoder``), and ``FECStage``: the lane-major FEC stage
+``Receiver._fec_stage_lane_major_impl`` (LDPC -> BCH -> byte packing) with
+the tables ``StreamReceiver`` takes from ``Receiver``. The host
 ``Receiver`` class itself (the Gardner path) comes later.
 """
 
@@ -211,6 +213,36 @@ def acq_metric(symbols):
     return plsync.timing_metric(symbols, hist)[0]
 
 
+def get_ldpc_decoder(table: str, max_trials: int = 25,
+                     algo: str = "offset-min-sum", update: str = "normal",
+                     device=None) -> CudaLDPCDecoder:
+    """The LDPC decoder of code ``table``, one per (table, trials, device):
+    the CUDA kernel on CUDA tensors, its plain version on CPU tensors. Only
+    offset-min-sum with the normal update is ported."""
+    if (algo, update) != ("offset-min-sum", "normal"):
+        raise NotImplementedError(
+            "the port decodes offset-min-sum with the normal update only"
+        )
+    return _ldpc_decoder(table, max_trials, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _ldpc_decoder(table, max_trials, device):
+    return CudaLDPCDecoder(get_code(table), max_trials, device)
+
+
+def get_bch_decoder(framesize: str, t: int, nbch: int, kbch: int,
+                    device=None) -> BCHDecoder:
+    """The BCH decoder of one (frame size, t, nbch, kbch), one per device
+    (its Chien matrix is built once, on the first frame that needs it)."""
+    return _bch_decoder(framesize, t, nbch, kbch, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _bch_decoder(framesize, t, nbch, kbch, device):
+    return BCHDecoder(framesize, t, nbch, kbch, device)
+
+
 class FECStage:
     """Lane-major FEC stage and the frame tables of one configuration.
 
@@ -220,19 +252,16 @@ class FECStage:
     """
 
     def __init__(self, cfg: RxConfig, device=None):
-        if (cfg.ldpc_algo, cfg.ldpc_update) != ("offset-min-sum", "normal"):
-            raise NotImplementedError(
-                "the port decodes offset-min-sum with the normal update only"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         info = cfg.pls_info
         self.frame_len = info.plframe_len
         self.payload_len = info.payload_len
-        self.ldpc = CudaLDPCDecoder(get_code(cfg.fec.ldpc_table),
-                                    cfg.ldpc_max_trials, self.device)
-        self.bch = BCHDecoder(cfg.fec.framesize, cfg.fec.t, cfg.fec.nbch,
-                              cfg.fec.kbch, self.device)
+        self.ldpc = get_ldpc_decoder(cfg.fec.ldpc_table, cfg.ldpc_max_trials,
+                                     cfg.ldpc_algo, cfg.ldpc_update,
+                                     self.device)
+        self.bch = get_bch_decoder(cfg.fec.framesize, cfg.fec.t, cfg.fec.nbch,
+                                   cfg.fec.kbch, self.device)
         self.bb_scramble_np = bb_derandomizer_bytes(cfg.fec.kbch // 8)
         # planar (payload_len, 2) float32 PL descrambling sequence
         self.descr_np = cplx.from_np(

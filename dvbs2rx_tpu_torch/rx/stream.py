@@ -59,19 +59,60 @@ FP0 = 46            # nominal frame-start index inside the carried tail
 
 
 def _window(x, start, length):
-    """x (C, N, 2) float32 -> (C, length, 2): rows start[c] .. +length-1
-    of each channel, the start clamped into [0, N - length] like
-    ``jax.lax.dynamic_slice``. One gather over (re, im) pairs viewed as
-    int64."""
+    """x (C, N, 2) float32 -> (C, *start.shape[1:], length, 2): rows
+    start .. start+length-1 of each channel (``start`` (C,) or (C, k)),
+    each start clamped into [0, N - length] like ``jax.lax.dynamic_slice``.
+    One gather over (re, im) pairs viewed as int64."""
     C, N = x.shape[0], x.shape[1]
     s = start.to(torch.int64).clamp(0, N - length)
-    idx = s[:, None] + torch.arange(length, device=x.device)
+    idx = s[..., None] + torch.arange(length, device=x.device)
     pairs = x.contiguous().view(torch.int64)[..., 0]           # (C, N)
-    return torch.gather(pairs, 1, idx).view(torch.float32).reshape(
-        C, length, 2)
+    out = torch.gather(pairs, 1, idx.reshape(C, -1))
+    return out.view(torch.float32).reshape(idx.shape + (2,))
 
 
-class StreamReceiver:
+class StreamFrontEnd:
+    """The front end both stream receivers share: AGC, rotator and
+    feed-forward timing over a right-aligned sample buffer. A subclass sets
+    ``device``, ``cfg``, ``sync``, ``n_in``, ``n_out``, ``_n_fe`` and
+    ``N_BUF``."""
+
+    def put_iq(self, iq_block):
+        """One (C, n, 2) float32 host block onto the device."""
+        return torch.as_tensor(iq_block, device=self.device)
+
+    def _frontend(self, state, iq):
+        """Returns (state' with the sample buffer, gain, rotator phase and
+        timing updated, symbols (C, n_out, 2), overflow, underflow)."""
+        cfg = self.cfg
+        n_in, n_out, n_fe = self.n_in, self.n_out, self._n_fe
+        gain = state["agc_gain"]
+        if cfg.agc:
+            mag = torch.sqrt(iq[..., 0] ** 2 + iq[..., 1] ** 2).mean(-1)
+            target = cfg.agc_ref / mag.clamp(min=1e-12)
+            alpha = min(1.0, cfg.agc_rate * n_in)
+            gain = (1.0 - alpha) * gain + alpha * target
+            iq = iq * gain[:, None, None]
+        rot, phase = rotate_block(iq, state["rot_phase"], state["rot_inc"])
+        # right-aligned sample buffer: valid data ends at index N_BUF, the
+        # append is a static shift, consuming samples shrinks sfill
+        overflow = state["sfill"] > self.N_BUF - n_in
+        sfill = (state["sfill"] + n_in).clamp(max=self.N_BUF)
+        sbuf = torch.cat([state["sbuf"][:, n_in:], rot], dim=1)
+        ff = FFSyncState(tau=state["ff_tau"], rate=state["ff_rate"],
+                         initialized=state["ff_init"])
+        fe_in = _window(sbuf, self.N_BUF - sfill, n_fe)
+        ff2, syms, consumed = self.sync.step_batched(ff, fe_in, n_out)
+        sfill = sfill - consumed
+        underflow = sfill < (n_fe - n_in)
+        new_state = dict(
+            state, sbuf=sbuf, sfill=sfill, agc_gain=gain, rot_phase=phase,
+            ff_tau=ff2.tau, ff_rate=ff2.rate, ff_init=ff2.initialized,
+        )
+        return new_state, syms, overflow, underflow
+
+
+class StreamReceiver(StreamFrontEnd):
     """Locked steady-state multi-channel receiver as one device step."""
 
     def __init__(self, cfg: RxConfig, n_channels: int,
@@ -124,39 +165,7 @@ class StreamReceiver:
             "n0_refined": np.zeros((C,), np.float32),
         }
 
-    def put_iq(self, iq_block):
-        """One (C, n_in, 2) float32 host block onto the device."""
-        return torch.as_tensor(iq_block, device=self.device)
-
     # ---------------- the step ----------------
-
-    def _frontend(self, state, iq):
-        cfg = self.cfg
-        n_in, n_out, n_fe = self.n_in, self.n_out, self._n_fe
-        gain = state["agc_gain"]
-        if cfg.agc:
-            mag = torch.sqrt(iq[..., 0] ** 2 + iq[..., 1] ** 2).mean(-1)
-            target = cfg.agc_ref / mag.clamp(min=1e-12)
-            alpha = min(1.0, cfg.agc_rate * n_in)
-            gain = (1.0 - alpha) * gain + alpha * target
-            iq = iq * gain[:, None, None]
-        rot, phase = rotate_block(iq, state["rot_phase"], state["rot_inc"])
-        # right-aligned sample buffer: valid data ends at index N_BUF, the
-        # append is a static shift, consuming samples shrinks sfill
-        overflow = state["sfill"] > self.N_BUF - n_in
-        sfill = (state["sfill"] + n_in).clamp(max=self.N_BUF)
-        sbuf = torch.cat([state["sbuf"][:, n_in:], rot], dim=1)
-        ff = FFSyncState(tau=state["ff_tau"], rate=state["ff_rate"],
-                         initialized=state["ff_init"])
-        fe_in = _window(sbuf, self.N_BUF - sfill, n_fe)
-        ff2, syms, consumed = self.sync.step_batched(ff, fe_in, n_out)
-        sfill = sfill - consumed
-        underflow = sfill < (n_fe - n_in)
-        new_state = dict(
-            state, sbuf=sbuf, sfill=sfill, agc_gain=gain, rot_phase=phase,
-            ff_tau=ff2.tau, ff_rate=ff2.rate, ff_init=ff2.initialized,
-        )
-        return new_state, syms, overflow, underflow
 
     def _windows(self, sym_all, fp):
         """(C, T, 2) symbols + per-channel fp -> (hdr (C, F+1, 91, 2),

@@ -5,15 +5,16 @@ Construction per ETSI EN 302 307-1 Sec. 5.5.2.4 / Figure 13b (reference
 codeword y via the generator matrix; the LSB (b7) selects between the
 interleavings ``(y1 y1 y2 y2 ...)`` (b7=0) and ``(y1 !y1 y2 !y2 ...)`` (b7=1).
 
-Copy of ``dvbs2rx_tpu/spec/reed_muller.py`` cut to the codeword table and
-the encoder (the port's PLSC correlators are built in ``ops/plsync.py``).
+Copy of ``dvbs2rx_tpu/spec/reed_muller.py`` cut to the codeword table, the
+encoder and the scrambled images the PLSC decoders of ``ops/plsync.py``
+correlate against.
 """
 
 import functools
 
 import numpy as np
 
-from .pl_defs import N_PLSC_CODEWORDS, PLSC_LEN
+from .pl_defs import N_PLSC_CODEWORDS, PLSC_LEN, PLSC_SCRAMBLER_BITS
 
 _G32 = np.array(
     [0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF, 0xFFFFFFFF],
@@ -40,6 +41,19 @@ def codeword_bits():
         out[2 * i + 1, 0::2] = y
         out[2 * i + 1, 1::2] = 1 - y
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def scrambled_euclidean_images():
+    """(128, 64) float32: 2-PAM images of the PLSC-scrambled codewords.
+
+    Row i maps codeword i XOR plsc_scrambler with bit 0 -> +1, bit 1 -> -1:
+    the matrix the PLSC decoders correlate against (the scrambling is folded
+    in, so no separate descrambling step is needed — reference
+    ``lib/pl_signaling.cc:95-98``).
+    """
+    bits = codeword_bits() ^ PLSC_SCRAMBLER_BITS[None, :]
+    return (1.0 - 2.0 * bits).astype(np.float32)
 
 
 def encode(plsc: int) -> np.ndarray:

@@ -246,3 +246,152 @@ def test_stream_step_on_card_matches_cpu(card):
     assert fir_cuda.LAUNCHES - launches[0] == T
     assert ldpc_cuda.LAUNCHES - launches[1] == T
     assert bool(st_g["locked"].all()) and int(st_g["bch_errors"]) == 0
+
+
+def _vcm_case(schedule, n_pkts, reject=False):
+    """The small VCM configuration (piloted short QPSK 1/2 + 8PSK 3/5, a
+    2-frame coarse period; with ``reject`` a ``pls_list`` that takes the
+    QPSK frames only) and 2 channels of its waveform at 15 dB, one noise
+    seed per channel, a CFO of 5e-6 per sample."""
+    from dvbs2rx_tpu_torch.spec.pls import make_pls
+    from dvbs2rx_tpu_torch.tx.vcm import VCMTransmitter
+
+    pls = (make_pls(4, True, True), make_pls(12, True, True))
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short", acm_vcm=True,
+                   pls_expected=pls, coarse_period=2,
+                   pls_list=pls[:1] if reject else ())
+    vtx = VCMTransmitter([
+        TxConfig(modcod="qpsk1/2", frame_size="short", pilots=True),
+        TxConfig(modcod="8psk3/5", frame_size="short", pilots=True)])
+    rng = np.random.default_rng(0)
+    pkts = rng.integers(0, 256, (n_pkts, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    clean = vtx.ts_to_iq(pkts.reshape(-1), schedule)
+    iq = np.stack([awgn_channel(clean, 15.0, sps=2, freq_offset=5e-6,
+                                seed=1 + c) for c in range(2)])
+    return cfg, iq
+
+
+def test_vcm_step_on_card_matches_cpu(card):
+    """The VCM step (2 channels, piloted short QPSK 1/2 + 8PSK 3/5, 8 FEC
+    lanes) on the card against the same step on the CPU: every output slot
+    and integer statistic equal, floats within rtol 1e-4, the MF kernel
+    launched every step and the LDPC kernel once per decoded batch."""
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+
+    C, T = 2, 6
+    cfg, iq = _vcm_case([0, 1], 420)
+    gpu = VCMStreamReceiver(cfg, C, 2, fec_lanes=8, device=card)
+    cpu = VCMStreamReceiver(cfg, C, 2, fec_lanes=8, device="cpu")
+    state_c = cpu.prime(iq[:, : cpu._n_fe])
+    state_g = {k: v.to(card) for k, v in state_c.items()}
+    launches = (fir_cuda.LAUNCHES, ldpc_cuda.LAUNCHES)
+    batches = 0
+    for t in range(T):
+        blk = cplx.from_np(iq[:, cpu._n_fe + t * cpu.n_in:
+                              cpu._n_fe + (t + 1) * cpu.n_in]
+                           ).astype(np.float32)
+        state_c, out_c, st_c = cpu.step(state_c, torch.from_numpy(blk))
+        state_g, out_g, st_g = gpu.step(state_g, gpu.put_iq(blk))
+        for si in range(cpu.S):
+            np.testing.assert_array_equal(out_g["fired"][si],
+                                          out_c["fired"][si])
+            batches += int(out_c["fired"][si].sum())
+            for k in ("kb", "meta", "n_corr"):
+                np.testing.assert_array_equal(out_g[k][si].cpu().numpy(),
+                                              out_c[k][si].numpy(), err_msg=k)
+        for k in ("locked", "n_walked", "frames", "dummies", "rejected",
+                  "seq", "fp_right", "coarse_corrected"):
+            np.testing.assert_array_equal(st_g[k].cpu().numpy(),
+                                          st_c[k].numpy(), err_msg=k)
+        for k in ("metric", "n0", "n0_refined", "cum_foffset"):
+            np.testing.assert_allclose(st_g[k].cpu().numpy(), st_c[k].numpy(),
+                                       rtol=1e-4, atol=1e-7, err_msg=k)
+    assert batches >= 2
+    assert fir_cuda.LAUNCHES - launches[0] == T
+    assert ldpc_cuda.LAUNCHES - launches[1] == batches
+    assert bool(st_g["locked"].all())
+
+
+def _assert_vcm_states_close(ours, theirs):
+    """Integer leaves equal, the int8 queues within 1 (a rounding tie of
+    the card's and the CPU's float32), floats within rtol 1e-4."""
+    for k, v in theirs.items():
+        if k in ("qllr", "qxf"):
+            d = np.abs(ours[k].astype(np.int64) - v)
+            assert d.max(initial=0) <= 1, k
+        elif v.dtype.kind == "f":
+            np.testing.assert_allclose(ours[k], v, rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(ours[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("reject", [False, True])
+def test_vcm_engine_on_card_matches_cpu(card, reject):
+    """``VCMStreamEngine.receive`` on the card against the same run on the
+    CPU, over what a bare step bypasses: dummy frames in the schedule
+    ([0, -1, 1]), with ``reject`` a ``pls_list`` that rejects the 8PSK
+    frames, a forced re-acquisition of channel 0 (its timing through the MF
+    kernel) and the flush's partial LDPC batches. TS bytes, counters and
+    the re-acquired state agree."""
+    from dvbs2rx_tpu_torch.convert import vcm_state_to_numpy
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamEngine
+
+    C = 2
+    cfg, iq = _vcm_case([0, -1, 1], 150, reject)
+    engs = {d: VCMStreamEngine(cfg, C, 2, fec_lanes=8, device=d)
+            for d in ("cuda", "cpu")}
+    reacq, flushed = {d: [] for d in engs}, {}
+    for d, eng in engs.items():
+        sr = eng.sr
+
+        def reacquire(state, tail, mask, d=d, inner=sr.reacquire):
+            new, ok = inner(state, tail, mask)
+            reacq[d].append((vcm_state_to_numpy(new), ok.cpu().numpy()))
+            return new, ok
+
+        def flush(state, d=d, inner=sr.flush):
+            before = dict(ldpc_cuda.LAUNCHES_BY_CODE)
+            out = inner(state)
+            flushed[d] = {k: n - before.get(k, 0) for k, n in
+                          ldpc_cuda.LAUNCHES_BY_CODE.items()}
+            return out
+
+        sr.reacquire, sr.flush = reacquire, flush
+    sr = engs["cpu"].sr
+    warm = sr._n_fe + (engs["cpu"]._nblk + 1) * sr.n_in
+    end = warm + 5 * sr.n_in
+    assert iq.shape[1] >= end
+    ts = {}
+    for d, eng in engs.items():
+        first = eng.receive(iq[:, :warm], flush=False)
+        assert not eng.need.any() and eng.reacquired == 0
+        eng.need[0] = True                      # channel 0 re-acquires
+        rest = eng.receive(iq[:, warm:end], flush=True)
+        ts[d] = [np.concatenate([a, b]) for a, b in zip(first, rest)]
+    gpu, cpu = engs["cuda"], engs["cpu"]
+    for c in range(C):
+        np.testing.assert_array_equal(ts["cuda"][c], ts["cpu"][c])
+        assert ts["cpu"][c].size >= 188 * 20
+    for k in ("frame_cnt", "dummy_cnt", "rejected_cnt", "bch_frames",
+              "bch_frame_errors", "sof_cnt", "ldpc_frames", "unlock_cnt"):
+        assert getattr(gpu.stats, k) == getattr(cpu.stats, k), k
+    assert gpu._per_pls == cpu._per_pls
+    assert (gpu.reacquired, gpu.gaps_skipped) == \
+        (cpu.reacquired, cpu.gaps_skipped)
+    assert cpu.reacquired >= 1 and cpu.stats.dummy_cnt > 0
+    assert cpu.stats.bch_frame_errors == 0
+    assert len(reacq["cuda"]) == len(reacq["cpu"]) >= 1
+    for (s_g, ok_g), (s_c, ok_c) in zip(reacq["cuda"], reacq["cpu"]):
+        np.testing.assert_array_equal(ok_g, ok_c)
+        _assert_vcm_states_close(s_g, s_c)
+    assert reacq["cpu"][0][1].tolist() == [True, False]
+    fec = [f.ldpc_table for f in sr._fecs]
+    if reject:
+        assert cpu.stats.rejected_cnt > 0
+        assert cpu._per_pls[1]["fec_frames"] == 0
+    else:
+        assert cpu.stats.rejected_cnt == 0
+        # the flush decoded a partial batch of each code on the card
+        assert all(flushed["cuda"].get(t, 0) >= 1 for t in fec), flushed

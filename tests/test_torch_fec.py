@@ -27,7 +27,12 @@ from dvbs2rx_tpu.spec import bch_spec
 from dvbs2rx_tpu.tx import Transmitter, TxConfig
 
 from dvbs2rx_tpu_torch.ops import bch, crc8_dev, demap
-from dvbs2rx_tpu_torch.rx.receiver import FECStage, RxConfig
+from dvbs2rx_tpu_torch.rx.receiver import (
+    FECStage,
+    RxConfig,
+    get_bch_decoder,
+    get_ldpc_decoder,
+)
 
 torch.set_num_threads(2)
 SHORT = ("short", 12, 7200, 7032)
@@ -150,3 +155,23 @@ def test_fec_stage_kbytes_bit_exact():
                                       "hard_t")):
         np.testing.assert_array_equal(g, w, err_msg=what)
     np.testing.assert_array_equal(got[0][:4], bb[:4])
+
+
+@pytest.mark.parametrize("algo,update", [("min-sum", "normal"),
+                                         ("offset-min-sum",
+                                          "self-corrected")])
+def test_fec_factories_share_decoders_and_refuse_other_rules(algo, update):
+    """One decoder per code and device, shared by every stage that decodes
+    that code; the LDPC variants are not ported and raise."""
+    a = get_ldpc_decoder("S2_C4", 25, device="cpu")
+    assert get_ldpc_decoder("S2_C4", 25, device=torch.device("cpu")) is a
+    assert get_ldpc_decoder("S2_C5", 25, device="cpu") is not a
+    assert get_ldpc_decoder("S2_C4", 4, device="cpu") is not a
+    stage = FECStage(RxConfig(modcod="qpsk1/2", frame_size="short"), "cpu")
+    assert stage.ldpc is a
+    assert stage.bch is get_bch_decoder("short", 12, 7200, 7032, "cpu")
+    with pytest.raises(NotImplementedError):
+        get_ldpc_decoder("S2_C4", 25, algo, update, "cpu")
+    with pytest.raises(NotImplementedError):
+        FECStage(RxConfig(modcod="qpsk1/2", frame_size="short",
+                          ldpc_algo=algo, ldpc_update=update), "cpu")

@@ -30,6 +30,7 @@ from dvbs2rx_tpu.rx.stream import StreamReceiver as JStreamReceiver
 from dvbs2rx_tpu_torch import convert
 from dvbs2rx_tpu_torch.rx import receiver
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
+from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamEngine
 from dvbs2rx_tpu_torch.utils.runtime import resolve_device
 
 torch.set_num_threads(2)
@@ -47,6 +48,8 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "dvbs2rx_tpu_torch.ops.ldpc_cuda" in mods
     assert "dvbs2rx_tpu_torch.rx.stream" in mods
+    assert "dvbs2rx_tpu_torch.rx.vcm_stream" in mods
+    assert "dvbs2rx_tpu_torch.tx.vcm" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -129,6 +132,9 @@ def test_cuda_device_without_card_raises():
                        n_channels=1, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         StreamReceiver(receiver.RxConfig(), n_channels=1, device=None)
+    vcm = receiver.RxConfig(acm_vcm=True, pls_expected=(17, 49))
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        VCMStreamEngine(vcm)
 
 
 def test_resolve_device_defaults_to_the_card():

@@ -26,6 +26,7 @@ from dvbs2rx_tpu.spec import reed_muller as jrm
 from dvbs2rx_tpu.spec import rrc as jrrc
 from dvbs2rx_tpu.spec import scramblers as jscr
 from dvbs2rx_tpu.tx import transmitter as jtx
+from dvbs2rx_tpu.tx import vcm as jvcm
 
 from dvbs2rx_tpu_torch.io import native
 from dvbs2rx_tpu_torch.ops.crc8_dev import packet_validity
@@ -43,7 +44,7 @@ from dvbs2rx_tpu_torch.spec import (
     rrc,
     scramblers,
 )
-from dvbs2rx_tpu_torch.tx import transmitter
+from dvbs2rx_tpu_torch.tx import transmitter, vcm
 
 TABLES = jldpc.available_tables()
 
@@ -188,6 +189,33 @@ def test_transmitter_and_channel_give_the_same_bytes(modcod, pilots, n_pkts):
     b = jtx.awgn_channel(ref, 7.0, sps=2, freq_offset=1e-4, phase=0.3,
                          seed=9)
     assert a.tobytes() == b.tobytes()
+
+
+def test_scrambled_euclidean_images_match():
+    ours, ref = reed_muller.scrambled_euclidean_images(), \
+        jrm.scrambled_euclidean_images()
+    assert ours.dtype == ref.dtype and ours.shape == (128, 64)
+    np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("schedule", [[0, 1], [1, -1, 0, -1, -1]])
+def test_vcm_transmitter_gives_the_same_symbols(schedule):
+    """Per-frame MODCOD over one mode-adaptation stream, dummy frames
+    included, across two calls (the stream residue carries over)."""
+    kws = [dict(modcod="qpsk1/2", frame_size="short", pilots=True),
+           dict(modcod="8psk3/5", frame_size="short", pilots=False)]
+    ours = vcm.VCMTransmitter([transmitter.TxConfig(**k) for k in kws],
+                              gold_code=3)
+    ref = jvcm.VCMTransmitter([jtx.TxConfig(**k) for k in kws], gold_code=3)
+    assert ours.dummy_plframe().tobytes() == ref.dummy_plframe().tobytes()
+    for seed in (1, 2):
+        ts = _packets(23, seed=seed)
+        a, b = ours.modulate_ts(ts, schedule), ref.modulate_ts(ts, schedule)
+        assert a.dtype == b.dtype and a.size > 0
+        assert a.tobytes() == b.tobytes()
+    ts = _packets(17, seed=3)
+    assert ours.ts_to_iq(ts, schedule).tobytes() == \
+        ref.ts_to_iq(ts, schedule).tobytes()
 
 
 def test_transmitter_refuses_fractional_sps():

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the port's bare stream step on one GPU.
 
-    python3 tools/torch_profile_step.py [--steps 3]
+    python3 tools/torch_profile_step.py [--steps 3] [--path ccm|vcm]
 
-Builds chip_smoke.py's main-path configuration (64 channels, QPSK 1/2
-normal pilotless at Es/N0 6 dB, 2 frames per step) and its stimulus,
-primes a ``StreamReceiver``, puts every input block on the card, runs two
+Builds chip_smoke.py's configuration and stimulus of one path: ``ccm``
+(phase 5: 64 channels, QPSK 1/2 normal pilotless at Es/N0 6 dB, a
+``StreamReceiver``) or ``vcm`` (phase 6: 64 channels, piloted QPSK 1/2 +
+8PSK 3/5 normal at 13 dB, a ``VCMStreamReceiver``), 2 frames per step.
+Primes the receiver, puts every input block on the card, runs two
 warm-up steps, ``--steps`` timed steps (host clock, ending in a
 synchronise) and ``--steps`` more under ``torch.profiler``. Prints the
 bare step's wall time, the device busy time per step (the sum of the
-kernels' device times; one stream, so they do not overlap) and the idle
-share of the bare step, and the kernels by device time with their share
-(kernel events only). Needs one CUDA card.
+kernels' device times; one stream, so they do not overlap), the idle
+share of the bare step, the kernel launches per step, and the kernels by
+device time with their share (kernel events only). With ``--engine``, it
+then feeds the same stimulus through the path's engine (``StreamEngine``
+or ``VCMStreamEngine``) one step per ``receive`` call under ``cProfile``
+and prints the engine's wall time per step and the host functions by
+their own time. Needs one CUDA card.
 """
 
 import argparse
@@ -29,6 +35,8 @@ sys.path.insert(0, str(ROOT))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--path", choices=("ccm", "vcm"), default="ccm")
+    ap.add_argument("--engine", action="store_true")
     args = ap.parse_args()
     import torch
     from torch.autograd import DeviceType
@@ -38,14 +46,22 @@ def main():
     from dvbs2rx_tpu_torch.ops import cplx
     from dvbs2rx_tpu_torch.rx.receiver import RxConfig
     from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch_profile_step needs a CUDA card")
     print(chip_smoke._smi(), flush=True)
-    cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
-    sr = StreamReceiver(cfg, n_channels=chip_smoke.C,
-                        frames_per_step=chip_smoke.F, device="cuda")
-    iq, _ = chip_smoke._stimulus(types.SimpleNamespace(sr=sr))
+    if args.path == "ccm":
+        cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
+        sr = StreamReceiver(cfg, n_channels=chip_smoke.C,
+                            frames_per_step=chip_smoke.F, device="cuda")
+        iq, _ = chip_smoke._stimulus(types.SimpleNamespace(sr=sr))
+    else:
+        cfg = RxConfig(modcod="qpsk1/2", frame_size="normal", acm_vcm=True,
+                       pls_expected=(17, 49))
+        sr = VCMStreamReceiver(cfg, n_channels=chip_smoke.C,
+                               frames_per_step=chip_smoke.F, device="cuda")
+        iq, _, _ = chip_smoke._vcm_stimulus(sr)
     n_steps = 2 + 2 * args.steps
     if sr._n_fe + n_steps * sr.n_in > iq.shape[1]:
         raise ValueError("stimulus too short for that many steps")
@@ -69,7 +85,8 @@ def main():
         for t in range(2 + args.steps, n_steps):
             state, _, st = sr.step(state, blocks[t])
         torch.cuda.synchronize()
-    if not bool(st["locked"].all()) or int(st["bch_errors"]) != 0:
+    if not bool(st["locked"].all()) or (
+            args.path == "ccm" and int(st["bch_errors"]) != 0):
         raise AssertionError("profiled steps lost lock or had BCH errors")
     # kernels only: an operator's row repeats the time of its kernels
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -80,12 +97,54 @@ def main():
     if busy == 0:
         raise RuntimeError("the profiler saw no device time")
     busy_ms = busy / 1e3 / args.steps
-    print(f"bare step wall {wall * 1e3:.3f} ms ({args.steps} steps); device "
-          f"busy {busy_ms:.3f} ms/step ({args.steps} profiled steps); idle "
-          f"{1 - busy_ms / (wall * 1e3):.1%} of the bare step")
+    launches = sum(r[2] for r in rows) / args.steps
+    print(f"{args.path} bare step wall {wall * 1e3:.3f} ms ({args.steps} "
+          f"steps); device busy {busy_ms:.3f} ms/step ({args.steps} profiled "
+          f"steps); idle {1 - busy_ms / (wall * 1e3):.1%} of the bare step; "
+          f"{launches:.0f} kernel launches per step")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:15]:
         print(f"  {us / 1e3:9.3f} ms {us / busy:6.1%} {n:6d} launches  "
               f"{key[:90]}")
+    if args.engine:
+        _engine_profile(args, cfg, iq, sr, n_steps)
+
+
+def _engine_profile(args, cfg, iq, sr, n_steps):
+    """The engine's receive, one step per call, under cProfile."""
+    import cProfile
+    import pstats
+
+    import torch
+    from dvbs2rx_tpu_torch.rx.stream import StreamEngine
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamEngine
+
+    kind = StreamEngine if args.path == "ccm" else VCMStreamEngine
+    eng = kind(cfg, n_channels=sr.n_channels, frames_per_step=2,
+               device="cuda")
+    eng.receive(iq[:, : sr._n_fe + sr.n_in], flush=False)    # prime + step
+    eng.receive(iq[:, sr._n_fe + sr.n_in: sr._n_fe + 2 * sr.n_in],
+                flush=False)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for t in range(2, n_steps):
+        a = sr._n_fe + t * sr.n_in
+        eng.receive(iq[:, a: a + sr.n_in], flush=False)
+    torch.cuda.synchronize()
+    prof.disable()
+    steps = n_steps - 2
+    print(f"{args.path} engine: {(time.perf_counter() - t0) / steps * 1e3:.2f}"
+          f" ms per receive step under cProfile ({steps} steps); host "
+          f"functions by own time per step:")
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:15]
+    for (fn, line, name), (_, ncalls, tt, ct, _) in rows:
+        print(f"  {tt / steps * 1e3:8.2f} ms own {ct / steps * 1e3:8.2f} ms "
+              f"cum {ncalls / steps:8.0f} calls  {Path(fn).name}:{line} "
+              f"{name}")
+    if hasattr(eng, "close"):
+        eng.close()
 
 
 if __name__ == "__main__":
