@@ -15,6 +15,13 @@ leading channel axis.
   planar (C, N_SYM, 2) where JAX has it rail-major (C, 2, N_SYM), the LLR
   and symbol-snapshot queues one frame per row (S, CAP, N) where JAX has
   them lane-major (S, N, CAP).
+- ``ffsync_state_from_numpy`` / ``ffsync_state_to_numpy`` and
+  ``refined_n0_from_numpy`` carry what the host receivers
+  (``rx/receiver.py`` ``Receiver``, ``ACMReceiver``) keep beside their
+  numpy buffers: the feed-forward timing state of their one channel (the
+  JAX ``FFSyncState`` of scalars; the port's of (1,) tensors) and the
+  post-decoder refined N0 (per PLS in the ACM receiver; the JAX CCM
+  receiver's ``None`` is the port's 0.0, "not refined yet").
 - ``tables_from_spec`` gathers the constant tables of one configuration
   as device tensors, from the same builders the port's modules use.
 """
@@ -61,6 +68,33 @@ def vcm_state_to_numpy(state: dict) -> dict:
     out = state_to_numpy(state)
     return {k: np.ascontiguousarray(np.swapaxes(v, -1, -2))
             if k in VCM_TRANSPOSED else v for k, v in out.items()}
+
+
+def ffsync_state_from_numpy(state_np: dict, device):
+    """One channel's timing state, ``{"tau", "rate", "initialized"}`` as
+    numpy scalars (the JAX ``FFSyncState`` leaves) -> the port's
+    ``FFSyncState`` with (1,) leaves on ``device``."""
+    from .ops.ffsync import FFSyncState
+
+    def leaf(k, dtype):
+        return torch.tensor(np.asarray(state_np[k], dtype).reshape(1),
+                            device=device)
+
+    return FFSyncState(tau=leaf("tau", np.float32),
+                       rate=leaf("rate", np.float32),
+                       initialized=leaf("initialized", np.int32))
+
+
+def ffsync_state_to_numpy(state) -> dict:
+    """Inverse of ``ffsync_state_from_numpy``: numpy scalars."""
+    return {k: getattr(state, k).detach().cpu().numpy().reshape(())
+            for k in ("tau", "rate", "initialized")}
+
+
+def refined_n0_from_numpy(n0) -> dict:
+    """Refined N0 per PLS, ``{pls: value}`` with None for "not refined
+    yet" -> ``{pls: float}`` with 0.0 for it, the port's convention."""
+    return {int(p): 0.0 if v is None else float(v) for p, v in n0.items()}
 
 
 def tables_from_spec(cfg, device) -> dict:

@@ -1,9 +1,13 @@
-"""Layered offset-min-sum LDPC decoder in plain PyTorch.
+"""Layered min-sum LDPC decoder in plain PyTorch.
 
-Port of the roll-based decoder ``dvbs2rx_tpu/ops/ldpc.py`` (offset-min-sum,
-beta = 1, normal update; the min-sum, min-sum-c and self-corrected variants
-come later). It is the plain version of the CUDA kernel in
-``ldpc_cuda.py`` and the decoder that CPU tensors take.
+Port of the roll-based decoder ``dvbs2rx_tpu/ops/ldpc.py`` with its check
+rules (offset-min-sum with beta = 1, the default; min-sum, beta = 0; and
+min-sum-c, the two-input min with a correction term) and its message store
+rules (normal; self-corrected, which zeroes a message whose sign flipped).
+It is the plain version of the CUDA kernel in ``ldpc_cuda.py``, which
+implements offset-min-sum with the normal update only: CPU tensors take this
+decoder, and so does every other (algo, update) on any device, as the JAX
+package sends those rules to its XLA path.
 
 The frame state is one flat (N, B) column per frame in the kernel's
 shared-memory layout: data block ``b`` at rows ``b*360 .. b*360+359``,
@@ -19,7 +23,8 @@ takes no further deltas, so every frame's result is independent of its
 batch. Outputs match the JAX decoder bit for bit: hard bits, final LLRs,
 the batch iteration count and per-frame convergence.
 
-Compressed check messages (the CUDA kernel's on-chip layout). The stored
+Compressed check messages (the CUDA kernel's on-chip layout, which assumes
+the default rule's +-32 clamp; min-sum-c stores int8 messages). The stored
 message of edge ``c`` is ``clip(+-excl_c, -32, 31)`` with ``excl_c = min1``
 for the first edge ``idx0`` that reaches the layer row's minimum magnitude
 ``min0`` and ``min0`` for every other edge (a tie at ``min0`` makes
@@ -94,23 +99,65 @@ def write_runs(edges_i):
     return list(zip(starts, ends))
 
 
-def magnitudes(inp):
+ALGOS = ("offset-min-sum", "min-sum", "min-sum-c")
+UPDATES = ("normal", "self-corrected")
+
+
+def magnitudes(inp, beta=BETA):
     """Offset magnitudes ``max(min(|inp|, 127) - beta, 0)`` of check-node
     inputs."""
-    return (inp.abs().clamp(max=127) - BETA).clamp(min=0)
+    return (inp.abs().clamp(max=127) - beta).clamp(min=0)
 
 
-def check_node(inp):
-    """Offset-min-sum check-node outputs, unclamped: inputs (E, ...) ->
+def check_node(inp, beta=BETA):
+    """(Offset-)min-sum check-node outputs, unclamped: inputs (E, ...) ->
     (E, ...), excluding each edge's own input (first-min rule, min1 with
     multiplicity)."""
-    mags = magnitudes(inp)
+    mags = magnitudes(inp, beta)
     two = torch.topk(mags, 2, dim=0, largest=False).values
     min0, min1 = two[0], two[1]
     excl = torch.where(mags == min0, min1, min0)
     neg = (inp < 0).to(torch.int32)
     excl_sign = (neg.sum(dim=0, keepdim=True) & 1) ^ neg
     return torch.where(excl_sign == 1, -excl, excl)
+
+
+def minc(a, b, factor=2):
+    """Two-input min with the additive correction factor (reference
+    ``algorithms.hh`` MinSumCAlgorithm::minc, FACTOR = 2): the magnitude
+    min with the product sign (0 if either input is 0), nudged by
+    +-factor/2 where |a + b| or |a - b| is small."""
+    m = torch.minimum(a.abs(), b.abs())
+    x = torch.sign(a) * torch.sign(b) * m
+    apb = (a + b).abs()
+    amb = (a - b).abs()
+    half = factor // 2
+    pc = (2 * factor > apb) & (amb > 2 * apb)
+    nc = (2 * factor > amb) & (apb > 2 * amb)
+    x = torch.where(pc, x + half, x)
+    return torch.where(nc, x - half, x)
+
+
+def minc_exclusive(inp):
+    """Exclusive ``minc`` reduce over the edge axis in the reference's
+    prefix/suffix order (``exclusive_reduce.hh:20-34``): prefixes combine
+    left to right from the head, suffixes right to left from the tail, and
+    out[i] = minc(prefix, suffix). ``minc`` is not associative, so the order
+    is part of the result. inp (E, ...) with E >= 3."""
+    E = inp.shape[0]
+    outs = [None] * E
+    pres = [None] * E
+    pre = inp[0]
+    for i in range(1, E - 1):
+        pres[i] = pre
+        pre = minc(pre, inp[i])
+    outs[E - 1] = pre
+    suf = inp[E - 1]
+    for i in range(E - 2, 0, -1):
+        outs[i] = minc(pres[i], suf)
+        suf = minc(suf, inp[i])
+    outs[0] = suf
+    return torch.stack(outs)
 
 
 def msg_layout(max_deg: int):
@@ -173,16 +220,25 @@ def from_state(st, code: LDPCCode):
 
 
 class LDPCDecoder:
-    """Batched layered decoder for one code table.
+    """Batched layered decoder for one code table and one (algo, update)
+    pair (``ALGOS``, ``UPDATES``).
 
     ``__call__`` takes (B, N) int8 LLRs, ``decode_lane_major`` takes (N, B);
     both return (hard bits uint8, final LLRs int8, iterations int32 scalar,
     converged (B,) bool) in the layout they were given.
     """
 
-    def __init__(self, code: LDPCCode, max_trials: int = 25, device=None):
+    def __init__(self, code: LDPCCode, max_trials: int = 25, device=None,
+                 algo: str = "offset-min-sum", update: str = "normal"):
+        if algo not in ALGOS:
+            raise ValueError(f"unknown LDPC algorithm {algo!r}")
+        if update not in UPDATES:
+            raise ValueError(f"unknown LDPC update rule {update!r}")
         if code.M != M:
             raise ValueError(f"code {code.name}: M={code.M}, expected {M}")
+        self.algo = algo
+        self.update = update
+        self.beta = BETA if algo == "offset-min-sum" else 0
         self.code = code
         self.max_trials = max_trials
         self.device = resolve_device(device)
@@ -218,12 +274,24 @@ class LDPCDecoder:
         E = rows.shape[0]
         B = st.shape[1]
         vals = st[rows]                                 # (E, 360, B)
-        inp = vals if first else vals - msgs[i, :E]
+        old = msgs[i, :E]
+        inp = vals if first else vals - old
         inp = inp.clamp(-128, 127)
         if i == 0:
             inp[E - 1, 0] = 127                         # missing edge: inert
-        out = check_node(inp)
-        new_msgs = out.clamp(MSG_CLAMP_LO, MSG_CLAMP_HI)
+        if self.algo == "min-sum-c":
+            out = minc_exclusive(inp)
+            # the reference's MinSumCAlgorithm stores messages saturated to
+            # int8 only, with no +-32 clamp
+            new_msgs = out.clamp(-128, 127)
+        else:
+            out = check_node(inp, self.beta)
+            new_msgs = out.clamp(MSG_CLAMP_LO, MSG_CLAMP_HI)
+        if self.update == "self-corrected":
+            # keep the new message only where the old one was zero or has
+            # the same sign (reference SelfCorrectedUpdate, generic.hh:25)
+            keep = (old == 0) | ((old < 0) == (new_msgs < 0))
+            new_msgs = torch.where(keep, new_msgs, 0)
         # new value = sat(inp + out) with the unclamped check output,
         # written back as deltas so repeated blocks compose
         delta = (inp + out).clamp(-128, 127) - vals
@@ -231,8 +299,8 @@ class LDPCDecoder:
             new_msgs[E - 1, 0] = 0
             delta[E - 1, 0] = 0
         delta = torch.where(active, delta, 0)
-        # the kernel keeps these packed: pack_layer_msgs(inp) unpacks to
-        # exactly new_msgs
+        # the kernel keeps these packed (default rule): pack_layer_msgs(inp)
+        # unpacks to exactly new_msgs
         msgs[i, :E] = new_msgs
         for a, b in self._runs[i]:
             ix = rows[a:b].reshape(-1)

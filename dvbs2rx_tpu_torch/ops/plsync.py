@@ -234,11 +234,19 @@ def derotate_plheader(plheader, foffset, apply_freq):
     """PLHEADER derotation before PLSC decoding (reference
     ``pl_freq_sync.cc:351-437``): the frequency ramp of ``foffset`` over the
     90 symbols when ``apply_freq`` (open loop only), then the SOF phase.
-    ``foffset`` is a Python float and ``apply_freq`` a bool."""
+    ``foffset`` is a Python float and ``apply_freq`` a bool, or both are
+    tensors broadcastable to the header batch shape ``plheader.shape[:-2]``
+    (one value per channel: the JAX function, vmapped over channels, sees
+    one scalar each)."""
     n = torch.arange(PLHEADER_LEN, dtype=torch.float32, device=plheader.device)
     # float32 product, as the JAX expression rounds it
-    w = np.float32(2 * math.pi) * np.float32(foffset) if apply_freq else 0
-    ph = float(w) * n
+    two_pi = float(np.float32(2 * math.pi))
+    if isinstance(foffset, torch.Tensor):
+        w = torch.where(apply_freq, foffset.to(torch.float32) * two_pi, 0.0)
+        ph = w[..., None] * n
+    else:
+        w = np.float32(two_pi) * np.float32(foffset) if apply_freq else 0
+        ph = float(w) * n
     hdr = cplx.cmul(plheader, cplx.cexp(-ph))
     return cplx.cmul(hdr, cplx.cexp(-sof_phase(hdr))[..., None, :])
 

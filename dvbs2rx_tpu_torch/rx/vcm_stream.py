@@ -65,6 +65,8 @@ from ..spec.pls import parse_pls
 from ..spec.scramblers import bb_derandomizer_bytes, pl_descrambling_sequence
 from ..utils.runtime import device_table, resolve_device
 from .receiver import (
+    _BYTE_W,
+    _PLSC_DECODERS,
     RxStats,
     _snr_refine_frames,
     acq_metric,
@@ -76,12 +78,6 @@ from .stream import StreamFrontEnd, _window
 
 DUMMY_PLFRAME_LEN = 3330      # the shortest frame, so the walk's slot bound
 GAP_SKIP_STEPS = 8            # steps a channel waits on a missing seq
-_BYTE_W = 1 << np.arange(7, -1, -1, dtype=np.int64)
-_PLSC_DECODERS = {
-    "coherent-soft": plsync.plsc_decode_soft,
-    "coherent-hard": plsync.plsc_decode_hard,
-    "differential": plsync.plsc_decode_diff,
-}
 
 
 class VCMStreamReceiver(StreamFrontEnd):

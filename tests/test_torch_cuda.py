@@ -395,3 +395,135 @@ def test_vcm_engine_on_card_matches_cpu(card, reject):
         assert cpu.stats.rejected_cnt == 0
         # the flush decoded a partial batch of each code on the card
         assert all(flushed["cuda"].get(t, 0) >= 1 for t in fec), flushed
+
+
+@pytest.mark.parametrize("algo,update", [("min-sum", "normal"),
+                                         ("min-sum-c", "normal"),
+                                         ("offset-min-sum", "self-corrected")])
+def test_ldpc_variants_on_card_match_cpu(card, algo, update):
+    """The plain decoder's other rules on CUDA tensors (the configured
+    device's decoder, as ``get_ldpc_decoder`` routes them): bit-exact
+    against the same rule on the CPU; the kernel never launches."""
+    from dvbs2rx_tpu_torch.rx.receiver import get_ldpc_decoder
+
+    code = get_code("S2_C4")
+    llrs = np.concatenate([_llrs(code, 4, "random", 1),
+                           _llrs(code, 4, "converging", 2)])
+    dec = get_ldpc_decoder("S2_C4", 6, algo, update, card)
+    assert type(dec) is LDPCDecoder
+    before = ldpc_cuda.LAUNCHES
+    got = [t.cpu().numpy() for t in
+           dec.decode_lane_major(torch.from_numpy(llrs).to(card).t())]
+    want = [t.numpy() for t in LDPCDecoder(code, 6, "cpu", algo, update)
+            .decode_lane_major(torch.from_numpy(llrs).t())]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert ldpc_cuda.LAUNCHES == before
+
+
+def _host_pair(make, run):
+    """The same host receiver run on the card and on the CPU: (card
+    receiver, CPU receiver, card output, CPU output)."""
+    out = {}
+    for d in ("cuda", "cpu"):
+        rx = make(d)
+        out[d] = (rx, run(rx))
+    return out["cuda"][0], out["cpu"][0], out["cuda"][1], out["cpu"][1]
+
+
+HOST_INT_STATS = ("locked", "sof_cnt", "frame_cnt", "rejected_cnt",
+                  "dummy_cnt", "lock_cnt", "unlock_cnt", "coarse_corrected",
+                  "ldpc_frames", "ldpc_total_iters", "bch_frames",
+                  "bch_frame_errors", "bch_corrections")
+
+
+def _assert_host_same(g, c):
+    for k in HOST_INT_STATS:
+        assert getattr(g.stats, k) == getattr(c.stats, k), k
+    for k in ("coarse_foffset", "fine_foffset", "cum_freq_offset"):
+        np.testing.assert_allclose(getattr(g.stats, k), getattr(c.stats, k),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
+    assert g.bb_parser.stats == c.bb_parser.stats
+
+
+def test_host_receiver_on_card_matches_cpu(card):
+    """(a) ``make_receiver`` -> ``Receiver``, short QPSK 1/2 at 8 dB with a
+    small CFO through the closed loop, two ``receive`` calls: the TS bytes
+    and integer counters of the card's run equal the CPU's; the MF kernel
+    ran once per front-end block, the LDPC kernel once per FEC batch."""
+    from dvbs2rx_tpu_torch.rx.receiver import make_receiver
+
+    tx = Transmitter(TxConfig(modcod="qpsk1/2", frame_size="short"))
+    rng = np.random.default_rng(3)
+    pkts = rng.integers(0, 256, (12 * tx.df_bytes // 188, 188),
+                        dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    iq = awgn_channel(tx.ts_to_iq(pkts.reshape(-1)), 10.0, sps=2,
+                      freq_offset=1e-5, seed=4)
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short", coarse_period=2)
+    launches = {}
+
+    def run(rx):
+        before = (fir_cuda.LAUNCHES, ldpc_cuda.LAUNCHES)
+        cut = iq.size // 2
+        out = np.concatenate([rx.receive(iq[:cut], flush=False),
+                              rx.receive(iq[cut:])])
+        launches[rx.device.type] = (fir_cuda.LAUNCHES - before[0],
+                                    ldpc_cuda.LAUNCHES - before[1])
+        return out
+
+    g, c, ts_g, ts_c = _host_pair(lambda d: make_receiver(cfg, device=d),
+                                  run)
+    np.testing.assert_array_equal(ts_g, ts_c)
+    _assert_host_same(g, c)
+    assert c.stats.bch_frame_errors == 0 and ts_c.size >= 188 * 30
+    assert c.stats.cum_freq_offset != 0
+    n_fec = -(-c.stats.ldpc_frames // cfg.fec_batch)
+    assert launches["cuda"][1] == n_fec and launches["cpu"] == (0, 0)
+    assert launches["cuda"][0] > 0
+
+
+def test_acm_receiver_on_card_matches_cpu(card):
+    """(b) ``make_receiver`` -> ``ACMReceiver``, fully blind, on the small
+    VCM waveform with dummy frames: TS bytes, integer counters and per-PLS
+    counters equal on the card and on the CPU."""
+    from dvbs2rx_tpu_torch.rx.receiver import make_receiver
+
+    _, iq = _vcm_case([0, -1, 1], 150)
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short", pilots=True,
+                   acm_vcm=True, fec_batch=4)
+    g, c, ts_g, ts_c = _host_pair(lambda d: make_receiver(cfg, device=d),
+                                  lambda rx: rx.receive(iq[0]))
+    np.testing.assert_array_equal(ts_g, ts_c)
+    _assert_host_same(g, c)
+    assert c.stats.dummy_cnt > 0 and c.stats.bch_frame_errors == 0
+    fec_g, fec_c = (r.get_stats()["fec"]["per_pls"] for r in (g, c))
+    assert {p: (v["frames"], v["errors"], v["avg_ldpc_trials"])
+            for p, v in fec_g.items()} == \
+        {p: (v["frames"], v["errors"], v["avg_ldpc_trials"])
+         for p, v in fec_c.items()}
+    assert len(fec_c) == 2 and ts_c.size >= 188 * 30
+
+
+def test_batched_acm_receiver_on_card_matches_cpu(card):
+    """(c) ``BatchedACMReceiver``, 2 channels, two ``receive`` calls: each
+    channel's TS bytes and integer counters equal on the card and on the
+    CPU, with every FEC batch pooled into one kernel launch."""
+    from dvbs2rx_tpu_torch.rx.acm_batch import BatchedACMReceiver
+
+    _, iq = _vcm_case([0, -1, 1], 150)
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short", pilots=True,
+                   acm_vcm=True, fec_batch=4)
+    cut = iq.shape[1] // 2
+
+    def run(brx):
+        a = brx.receive(iq[:, :cut], flush=False)
+        b = brx.receive(iq[:, cut:])
+        return [np.concatenate([x, y]) for x, y in zip(a, b)]
+
+    g, c, ts_g, ts_c = _host_pair(
+        lambda d: BatchedACMReceiver(cfg, 2, device=d), run)
+    for ch in range(2):
+        np.testing.assert_array_equal(ts_g[ch], ts_c[ch])
+        _assert_host_same(g.chans[ch], c.chans[ch])
+        assert ts_c[ch].size >= 188 * 30

@@ -27,6 +27,8 @@ from dvbs2rx_tpu.spec import bch_spec
 from dvbs2rx_tpu.tx import Transmitter, TxConfig
 
 from dvbs2rx_tpu_torch.ops import bch, crc8_dev, demap
+from dvbs2rx_tpu_torch.ops.ldpc import LDPCDecoder
+from dvbs2rx_tpu_torch.ops.ldpc_cuda import CudaLDPCDecoder
 from dvbs2rx_tpu_torch.rx.receiver import (
     FECStage,
     RxConfig,
@@ -161,17 +163,26 @@ def test_fec_stage_kbytes_bit_exact():
                                          ("offset-min-sum",
                                           "self-corrected")])
 def test_fec_factories_share_decoders_and_refuse_other_rules(algo, update):
-    """One decoder per code and device, shared by every stage that decodes
-    that code; the LDPC variants are not ported and raise."""
+    """One decoder per code, rule and device, shared by every stage that
+    decodes that code. Offset-min-sum with the normal update is the CUDA
+    kernel's wrapper; every other rule is the plain decoder with that rule,
+    as the JAX ``_make_ldpc_decoder`` sends it to its XLA path. A rule
+    neither package knows is refused."""
     a = get_ldpc_decoder("S2_C4", 25, device="cpu")
+    assert type(a) is CudaLDPCDecoder
     assert get_ldpc_decoder("S2_C4", 25, device=torch.device("cpu")) is a
     assert get_ldpc_decoder("S2_C5", 25, device="cpu") is not a
     assert get_ldpc_decoder("S2_C4", 4, device="cpu") is not a
     stage = FECStage(RxConfig(modcod="qpsk1/2", frame_size="short"), "cpu")
     assert stage.ldpc is a
     assert stage.bch is get_bch_decoder("short", 12, 7200, 7032, "cpu")
-    with pytest.raises(NotImplementedError):
-        get_ldpc_decoder("S2_C4", 25, algo, update, "cpu")
-    with pytest.raises(NotImplementedError):
-        FECStage(RxConfig(modcod="qpsk1/2", frame_size="short",
-                          ldpc_algo=algo, ldpc_update=update), "cpu")
+    v = get_ldpc_decoder("S2_C4", 25, algo, update, "cpu")
+    assert type(v) is LDPCDecoder and (v.algo, v.update) == (algo, update)
+    assert get_ldpc_decoder("S2_C4", 25, algo, update, "cpu") is v
+    assert FECStage(RxConfig(modcod="qpsk1/2", frame_size="short",
+                             ldpc_algo=algo, ldpc_update=update),
+                    "cpu").ldpc is v
+    with pytest.raises(ValueError, match="unknown LDPC"):
+        get_ldpc_decoder("S2_C4", 25, algo + "-x", update, "cpu")
+    with pytest.raises(ValueError, match="unknown LDPC"):
+        get_ldpc_decoder("S2_C4", 25, "min-sum", update + "-x", "cpu")

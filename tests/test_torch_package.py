@@ -29,6 +29,7 @@ from dvbs2rx_tpu.rx.stream import StreamReceiver as JStreamReceiver
 
 from dvbs2rx_tpu_torch import convert
 from dvbs2rx_tpu_torch.rx import receiver
+from dvbs2rx_tpu_torch.rx.acm_batch import BatchedACMReceiver
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
 from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamEngine
 from dvbs2rx_tpu_torch.utils.runtime import resolve_device
@@ -50,6 +51,7 @@ def test_every_module_imports_without_jax():
     assert "dvbs2rx_tpu_torch.rx.stream" in mods
     assert "dvbs2rx_tpu_torch.rx.vcm_stream" in mods
     assert "dvbs2rx_tpu_torch.tx.vcm" in mods
+    assert "dvbs2rx_tpu_torch.rx.acm_batch" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -135,6 +137,11 @@ def test_cuda_device_without_card_raises():
     vcm = receiver.RxConfig(acm_vcm=True, pls_expected=(17, 49))
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         VCMStreamEngine(vcm)
+    for make in (receiver.make_receiver, receiver.Receiver,
+                 receiver.ACMReceiver,
+                 lambda cfg: BatchedACMReceiver(cfg, 2)):
+        with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+            make(vcm)
 
 
 def test_resolve_device_defaults_to_the_card():

@@ -2,6 +2,7 @@
 """Device-time breakdown of the port's bare stream step on one GPU.
 
     python3 tools/torch_profile_step.py [--steps 3] [--path ccm|vcm]
+    python3 tools/torch_profile_step.py --path host-ccm|host-acm
 
 Builds chip_smoke.py's configuration and stimulus of one path: ``ccm``
 (phase 5: 64 channels, QPSK 1/2 normal pilotless at Es/N0 6 dB, a
@@ -17,7 +18,14 @@ device time with their share (kernel events only). With ``--engine``, it
 then feeds the same stimulus through the path's engine (``StreamEngine``
 or ``VCMStreamEngine``) one step per ``receive`` call under ``cProfile``
 and prints the engine's wall time per step and the host functions by
-their own time. Needs one CUDA card.
+their own time.
+
+``host-ccm`` and ``host-acm`` profile a host receiver instead: chip_smoke
+phase 7's (a) ``Receiver`` or (b) blind ``ACMReceiver`` run, whole (every
+chunk and the flush), once timed (host clock), once under
+``torch.profiler`` (device busy, idle share, launches, kernels by device
+time) and once under ``cProfile`` (host functions by own time), each on a
+fresh receiver after one warm-up run. Needs one CUDA card.
 """
 
 import argparse
@@ -35,7 +43,8 @@ sys.path.insert(0, str(ROOT))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--path", choices=("ccm", "vcm"), default="ccm")
+    ap.add_argument("--path", choices=("ccm", "vcm", "host-ccm", "host-acm"),
+                    default="ccm")
     ap.add_argument("--engine", action="store_true")
     args = ap.parse_args()
     import torch
@@ -51,6 +60,8 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError("torch_profile_step needs a CUDA card")
     print(chip_smoke._smi(), flush=True)
+    if args.path.startswith("host-"):
+        return _host_profile(args.path)
     if args.path == "ccm":
         cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
         sr = StreamReceiver(cfg, n_channels=chip_smoke.C,
@@ -107,6 +118,82 @@ def main():
               f"{key[:90]}")
     if args.engine:
         _engine_profile(args, cfg, iq, sr, n_steps)
+
+
+def _kernel_rows(prof):
+    """(name, device us, launches) of the kernel events: an operator's row
+    repeats the time of its kernels."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def _host_profile(path):
+    """One host receiver run of chip_smoke phase 7 (a) or (b): wall, device
+    busy and launches under torch.profiler, host functions under
+    cProfile."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from dvbs2rx_tpu_torch.rx.receiver import RxConfig, make_receiver
+
+    if path == "host-ccm":
+        cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
+        iq, _ = chip_smoke._ccm_host_stimulus()
+        chunks = np.array_split(iq, chip_smoke.HOST_CHUNKS)
+    else:
+        cfg = RxConfig(modcod="qpsk1/2", frame_size="normal", pilots=True,
+                       acm_vcm=True)
+        iq = chip_smoke._acm_stimulus([500])[0][0]
+        chunks = np.array_split(iq, chip_smoke.ACM_CHUNKS)
+
+    def run():
+        rx = make_receiver(cfg)
+        for c in chunks:
+            rx.receive(c, flush=False)
+        rx.receive(np.empty(0, np.complex64), flush=True)
+        torch.cuda.synchronize()
+        if rx.stats.bch_frame_errors or not rx.stats.locked:
+            raise AssertionError(f"{path}: {rx.stats}")
+        return rx
+
+    run()                                             # warm-up
+    t0 = time.perf_counter()
+    rx = run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = _kernel_rows(prof)
+    busy = sum(r[1] for r in rows) / 1e6
+    if busy == 0:
+        raise RuntimeError("the profiler saw no device time")
+    frames = rx.stats.bch_frames
+    print(f"{path}: {iq.size} samples, {frames} FEC frames; run wall "
+          f"{wall:.3f} s = {iq.size / wall / 1e6:.3f} Msps; device busy "
+          f"{busy * 1e3:.2f} ms, idle {1 - busy / wall:.1%} of the run; "
+          f"{sum(r[2] for r in rows)} kernel launches "
+          f"({sum(r[2] for r in rows) / frames:.0f} per frame)")
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  {us / 1e3:9.3f} ms {us / 1e6 / busy:6.1%} {n:6d} launches  "
+              f"{key[:90]}")
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    prof.disable()
+    print(f"{path}: host functions by own time (ms per run):")
+    st = pstats.Stats(prof)
+    for (fn, line, name), (_, ncalls, tt, ct, _) in sorted(
+            st.stats.items(), key=lambda kv: -kv[1][2])[:15]:
+        print(f"  {tt * 1e3:8.2f} ms own {ct * 1e3:8.2f} ms cum {ncalls:7d} "
+              f"calls  {Path(fn).name}:{line} {name}")
 
 
 def _engine_profile(args, cfg, iq, sr, n_steps):
