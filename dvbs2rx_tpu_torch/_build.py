@@ -30,11 +30,12 @@ NVCC_FLAGS = ARCH_FLAGS + [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point: c_void_p for each pointer and the
 # stream, c_int for each int (ctypes would otherwise cut a pointer to 32
-# bits)
+# bits), c_float for each float
 _SIGNATURES = {
+    "gardner_launch": [_P] * 15 + [_I] * 10 + [_F] * 4 + [_P],
     "mf_segmented_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "mf_segmented_smem_bytes": [_I] * 2,
     "mf_segmented_grid_blocks": [_I] * 2,

@@ -22,6 +22,10 @@ leading channel axis.
   JAX ``FFSyncState`` of scalars; the port's of (1,) tensors) and the
   post-decoder refined N0 (per PLS in the ACM receiver; the JAX CCM
   receiver's ``None`` is the port's 0.0, "not refined yet").
+- ``symbol_sync_state_from_numpy`` / ``symbol_sync_state_to_numpy`` carry
+  the Gardner loop state (the JAX ``SymbolSyncState`` leaves as numpy, one
+  channel's scalars or with a leading channel axis) to the port's
+  ``SymbolSyncState`` of (C,) tensors and back, with the channel axis.
 - ``tables_from_spec`` gathers the constant tables of one configuration
   as device tensors, from the same builders the port's modules use.
 """
@@ -89,6 +93,33 @@ def ffsync_state_to_numpy(state) -> dict:
     """Inverse of ``ffsync_state_from_numpy``: numpy scalars."""
     return {k: getattr(state, k).detach().cpu().numpy().reshape(())
             for k in ("tau", "rate", "initialized")}
+
+
+# the Gardner state's leaves: dtype and per-channel shape
+_SYMBOL_SYNC_LEAVES = {"cnt": (np.float32, ()), "mu": (np.float32, ()),
+                       "vi": (np.float32, ()), "jump": (np.int32, ()),
+                       "last_xi": (np.float32, (2,)), "n": (np.int32, ())}
+
+
+def symbol_sync_state_from_numpy(state_np: dict, device):
+    """Gardner loop state, ``{"cnt", "mu", "vi", "jump", "last_xi", "n"}``
+    as numpy (the JAX ``SymbolSyncState`` leaves of one channel, or the
+    same with a leading channel axis) -> the port's ``SymbolSyncState``
+    with (C,) leaves (``last_xi`` (C, 2)) on ``device``."""
+    from .ops.frontend import SymbolSyncState
+
+    out = {}
+    for k, (dtype, tail) in _SYMBOL_SYNC_LEAVES.items():
+        a = np.asarray(state_np[k], dtype).reshape((-1,) + tail)
+        out[k] = torch.from_numpy(a.copy()).to(device)
+    return SymbolSyncState(**out)
+
+
+def symbol_sync_state_to_numpy(state) -> dict:
+    """Inverse of ``symbol_sync_state_from_numpy``: numpy leaves with the
+    leading channel axis."""
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in _SYMBOL_SYNC_LEAVES}
 
 
 def refined_n0_from_numpy(n0) -> dict:

@@ -13,10 +13,11 @@ Port of ``dvbs2rx_tpu/rx/receiver.py``:
 - ``Receiver`` (CCM) and ``ACMReceiver`` (PLSC-driven ACM/VCM), which
   ``make_receiver`` returns: a host loop over numpy sample and symbol
   buffers around device stages (front end, timing metric, PLSC decode,
-  frame-group program, FEC, SNR refinement). The front end is the
-  feed-forward timing recovery of ``ops/ffsync.py``, so the matched-filter
-  kernel on the card; the Gardner ``SymbolSync`` is not ported and
-  ``sym_sync_impl="gardner"`` raises ``NotImplementedError``.
+  frame-group program, FEC, SNR refinement). The front end's timing
+  recovery is ``sym_sync_impl``'s: the feed-forward ``ops/ffsync.py`` (sps
+  2; the matched-filter kernel on the card) or the Gardner loop of
+  ``ops/frontend.SymbolSync`` (any even sps; the Gardner kernel on the
+  card).
 
 Every device stage is a batch function: it takes a list of per-channel
 argument tuples, runs them as one call with the channels on a leading axis,
@@ -34,7 +35,7 @@ paths give the same bytes and counters.
 import datetime
 import functools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -61,7 +62,7 @@ from ..ops.bch import BCHDecoder
 from ..ops.crc8_dev import packet_validity
 from ..ops.demap import demap, estimate_snr_generic, estimate_snr_qpsk
 from ..ops.ffsync import FeedForwardSync, FFSyncState
-from ..ops.frontend import rotate_block
+from ..ops.frontend import SymbolSync, rotate_block
 from ..ops.ldpc import LDPCDecoder
 from ..ops.ldpc_cuda import CudaLDPCDecoder
 from ..utils.runtime import device_table, resolve_device
@@ -424,21 +425,25 @@ class Receiver:
     get_stats = get_stats
 
     def __init__(self, cfg: RxConfig, device=None):
-        if cfg.sym_sync_impl == "gardner":
-            raise NotImplementedError(
-                "sym_sync_impl='gardner' (the Gardner SymbolSync loop) is not "
-                "ported yet (ROADMAP.md Queue 1); use 'ffw'")
-        if cfg.sym_sync_impl != "ffw":
+        if cfg.sym_sync_impl not in ("ffw", "gardner"):
             raise ValueError(f"Unknown sym_sync_impl {cfg.sym_sync_impl!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         info = cfg.pls_info
         self.frame_len = info.plframe_len
         self.payload_len = info.payload_len
-        self.sym_sync = FeedForwardSync(
-            sps=cfg.sps, rolloff=cfg.rolloff, rrc_delay=cfg.rrc_delay,
-            n_subfilt=cfg.n_subfilt, device=self.device,
-        )
+        if cfg.sym_sync_impl == "gardner":
+            self.sym_sync = SymbolSync(
+                sps=cfg.sps, loop_bw=cfg.sym_sync_loop_bw,
+                damping=cfg.damping, rolloff=cfg.rolloff,
+                rrc_delay=cfg.rrc_delay, n_subfilt=cfg.n_subfilt,
+                device=self.device,
+            )
+        else:
+            self.sym_sync = FeedForwardSync(
+                sps=cfg.sps, rolloff=cfg.rolloff, rrc_delay=cfg.rrc_delay,
+                n_subfilt=cfg.n_subfilt, device=self.device,
+            )
         self._tables = {}
         self._pls_tables(cfg.pls)    # the configured PLS's decoders, built now
         self._fe_nout = cfg.frontend_block
@@ -467,7 +472,7 @@ class Receiver:
         self.stats = RxStats()
         self._samp_buf = np.empty(0, dtype=np.complex64)
         self._sym_buf = np.empty(0, dtype=np.complex64)
-        self._ss_state = None        # FFSyncState of (1,) device tensors
+        self._ss_state = None        # timing state of (1,) device tensors
         self._agc_gain = float(self.cfg.agc_gain)
         self._rot_phase = 0.0
         self._rot_inc = 0.0          # per-sample phase increment (closed loop)
@@ -525,16 +530,20 @@ class Receiver:
     # ------------- front end -------------
 
     def _fe_batch(self, reqs):
-        """Front-end blocks: reqs of (samples (n, 2) float32 numpy, FFSync
+        """Front-end blocks: reqs of (samples (n, 2) float32 numpy, timing
         state, rotator phase, rotator increment, AGC gain). Block AGC on the
-        mean magnitude, the rotator, then feed-forward timing recovery with
-        the segmented matched filter (one kernel launch for all channels on
-        the card). Returns per channel (state', symbols (n_out,) complex64,
-        consumed samples, gain')."""
+        mean magnitude, the rotator, then the timing recovery: feed-forward
+        with the segmented matched filter, or the Gardner loop, whose
+        ``consumed`` is ``n + 1 - history`` with ``n`` then reset to
+        ``history - 1`` (one kernel launch for all channels on the card,
+        either way). Returns per channel (state', symbols (n_out,)
+        complex64, consumed samples, gain')."""
         cfg, dev = self.cfg, self.device
         x = torch.as_tensor(np.stack([r[0] for r in reqs]), device=dev)
-        st = FFSyncState(*(torch.cat([getattr(r[1], k) for r in reqs])
-                           for k in ("tau", "rate", "initialized")))
+        cls = type(reqs[0][1])
+        names = [f.name for f in fields(cls)]
+        st = cls(*(torch.cat([getattr(r[1], k) for r in reqs])
+                   for k in names))
         ph, inc, gain = (torch.tensor([r[i] for r in reqs],
                                       dtype=torch.float32, device=dev)
                          for i in (2, 3, 4))
@@ -545,13 +554,18 @@ class Receiver:
             gain = (1.0 - alpha) * gain + alpha * target
             x = x * gain[:, None, None]
         rot, _ = rotate_block(x, ph, inc)
-        new, syms, consumed = self.sym_sync.step_batched(st, rot,
-                                                         self._fe_nout)
+        if cfg.sym_sync_impl == "ffw":
+            new, syms, consumed = self.sym_sync.step_batched(st, rot,
+                                                             self._fe_nout)
+        else:
+            new, syms = self.sym_sync.step(st, rot, self._fe_nout)
+            hist = self.sym_sync.history()
+            consumed = new.n + 1 - hist
+            new.n = torch.full_like(new.n, hist - 1)
         syms = cplx.to_np(syms)
         consumed, gain = _to_host(consumed, gain)
         return [
-            (FFSyncState(new.tau[c: c + 1], new.rate[c: c + 1],
-                         new.initialized[c: c + 1]),
+            (cls(*(getattr(new, k)[c: c + 1] for k in names)),
              syms[c], int(consumed[c]), float(gain[c]))
             for c in range(len(reqs))
         ]
@@ -572,7 +586,8 @@ class Receiver:
             else:
                 return
             state, syms, consumed, gain = self._call(
-                ("fe", self._fe_nsamp), self._fe_batch,
+                ("fe", self.cfg.sym_sync_impl, self._fe_nsamp),
+                self._fe_batch,
                 (cplx.from_np(block), self._ss_state, self._rot_phase,
                  self._rot_inc, self._agc_gain),
             )

@@ -8,10 +8,12 @@ GNU Radio's in-tree gr-dtv blocks (``apps/dvbs2-tx:619-686``):
        -> constellation map -> PL framing (PLHEADER, pilots, PL scrambling)
        -> RRC pulse shaping -> (optional channel: AWGN + CFO + phase)
 
-Copy of ``dvbs2rx_tpu/tx/transmitter.py`` for integer samples per symbol:
-the stimulus of the port's tests and of ``chip_smoke.py``. Fractional
-``sps`` needs the arbitrary resampler, which the port does not have yet
-(``ROADMAP.md``, Queue 1), so ``TxConfig`` refuses it.
+Copy of ``dvbs2rx_tpu/tx/transmitter.py``: the stimulus of the port's
+tests and of ``chip_smoke.py``. Integer ``sps`` pulse-shapes with the RRC
+FIR; fractional ``sps`` with the port's arbitrary resampler
+(``ops/resample.StreamResampler`` with ``rrc_kernel``), one shot or
+streamed (``pulse_shape_stream`` / ``pulse_shape_flush``).
+``StreamingChannel`` is the chunked ``awgn_channel``.
 """
 
 from dataclasses import dataclass
@@ -31,6 +33,7 @@ from ..spec.scramblers import (
     pl_scrambling_sequence,
 )
 from ..spec.rrc import root_raised_cosine
+from ..ops.resample import StreamResampler, rrc_kernel
 
 # MATYPE-1 RO field (EN 302 307-1 Sec. 5.1.6). DVB-S2X (EN 302 307-2)
 # keeps codes 0-2 and signals the low-rolloff set 0.15/0.10/0.05 with the
@@ -46,15 +49,15 @@ class TxConfig:
     frame_size: str = "normal"       # "normal" | "short"
     pilots: bool = False
     rolloff: float = 0.2
-    sps: int = 2                     # samples per symbol (integer)
+    sps: float = 2                   # samples per symbol (fractional allowed)
     gold_code: int = 0
     rrc_delay: int = 25              # RRC span in symbols (each side)
 
     def __post_init__(self):
-        if not float(self.sps).is_integer():
-            raise NotImplementedError(
-                "fractional sps needs the arbitrary resampler, not yet ported")
-        self.sps = int(self.sps)
+        if float(self.sps).is_integer():
+            self.sps = int(self.sps)  # integer fast path (plain FIR)
+        elif self.sps <= 1.0:
+            raise ValueError("sps must exceed 1 sample/symbol")
         key = self.modcod.lower()
         if key not in MODCOD_NUMBERS:
             raise ValueError(f"Unknown MODCOD {self.modcod!r}")
@@ -83,6 +86,10 @@ class Transmitter:
         self._ts_residue = np.empty(0, dtype=np.uint8)  # CRC-ized UP stream tail
         self._last_crc = 0
         self._stream_offset = 0  # UP-stream phase (bytes mod 188) at next datafield
+        # Streaming pulse-shape state: last ntaps-1 upsampled input samples
+        # (integer sps) or a persistent arbitrary resampler (fractional sps)
+        self._ps_tail = None
+        self._ps_rs = None
 
     # ---------------- BB framing ----------------
 
@@ -198,16 +205,101 @@ class Transmitter:
         )
 
     def pulse_shape(self, symbols: np.ndarray) -> np.ndarray:
-        """Upsample by sps and apply the RRC transmit filter."""
+        """Upsample by sps and apply the RRC transmit filter.
+
+        Fractional sps uses the polyphase arbitrary resampler with exact
+        continuous RRC taps (reference: ``apps/dvbs2-tx:638-686`` uses
+        ``pfb_arb_resampler_ccf`` for non-integer interpolation ratios).
+        """
         sps = self.cfg.sps
-        ntaps = 2 * sps * self.cfg.rrc_delay + 1
-        taps = root_raised_cosine(sps, sps, 1.0, self.cfg.rolloff, ntaps)
+        if not isinstance(sps, int):
+            rs = self._make_arb_shaper()
+            return np.concatenate([rs(symbols), rs.flush()])
         up = np.zeros(symbols.size * sps, dtype=np.complex64)
         up[::sps] = symbols
-        return np.convolve(up, taps).astype(np.complex64)
+        return np.convolve(up, self._rrc_taps()).astype(np.complex64)
+
+    def _make_arb_shaper(self):
+        return StreamResampler(
+            self.cfg.sps,
+            kernel=rrc_kernel(self.cfg.rolloff, self.cfg.rrc_delay),
+            delay=self.cfg.rrc_delay,
+        )
+
+    def _rrc_taps(self) -> np.ndarray:
+        sps = self.cfg.sps
+        ntaps = 2 * sps * self.cfg.rrc_delay + 1
+        return root_raised_cosine(sps, sps, 1.0, self.cfg.rolloff, ntaps)
+
+    def pulse_shape_stream(self, symbols: np.ndarray) -> np.ndarray:
+        """Streaming pulse shaping: exact chunked equivalent of
+        ``pulse_shape`` with the FIR state carried across calls. The
+        concatenation of all chunk outputs plus ``pulse_shape_flush()``
+        equals the one-shot ``pulse_shape`` of the concatenated symbols."""
+        if symbols.size == 0:
+            return np.empty(0, dtype=np.complex64)
+        if not isinstance(self.cfg.sps, int):
+            if self._ps_rs is None:
+                self._ps_rs = self._make_arb_shaper()
+            return self._ps_rs(symbols)
+        taps = self._rrc_taps()
+        if self._ps_tail is None:
+            self._ps_tail = np.zeros(taps.size - 1, dtype=np.complex64)
+        up = np.zeros(symbols.size * self.cfg.sps, dtype=np.complex64)
+        up[:: self.cfg.sps] = symbols
+        buf = np.concatenate([self._ps_tail, up])
+        out = np.convolve(buf, taps, mode="valid").astype(np.complex64)
+        self._ps_tail = buf[-(taps.size - 1):]
+        return out
+
+    def pulse_shape_flush(self) -> np.ndarray:
+        """Drain the streaming pulse-shape filter tail."""
+        if not isinstance(self.cfg.sps, int):
+            if self._ps_rs is None:
+                return np.empty(0, dtype=np.complex64)
+            out = self._ps_rs.flush()
+            self._ps_rs = None
+            return out
+        taps = self._rrc_taps()
+        if self._ps_tail is None:
+            return np.empty(0, dtype=np.complex64)
+        buf = np.concatenate(
+            [self._ps_tail, np.zeros(taps.size - 1, dtype=np.complex64)]
+        )
+        self._ps_tail = None
+        return np.convolve(buf, taps, mode="valid").astype(np.complex64)
 
     def ts_to_iq(self, ts_bytes: np.ndarray) -> np.ndarray:
         return self.pulse_shape(self.modulate_ts(ts_bytes))
+
+
+class StreamingChannel:
+    """Streaming channel impairments: CFO/phase rotation with an absolute
+    sample counter and AWGN from one generator — the chunked equivalent of
+    ``awgn_channel`` (reference ``apps/dvbs2-tx:579-593`` channel sim)."""
+
+    def __init__(self, esn0_db=None, sps=2, freq_offset=0.0, phase=0.0, seed=0):
+        self.esn0_db = esn0_db
+        self.sps = sps
+        self.freq_offset = freq_offset
+        self.phase = phase
+        self.rng = np.random.default_rng(seed)
+        self.n = 0
+
+    def __call__(self, iq: np.ndarray) -> np.ndarray:
+        iq = np.asarray(iq, dtype=np.complex64)
+        if self.freq_offset or self.phase:
+            n = np.arange(self.n, self.n + iq.size)
+            iq = iq * np.exp(
+                1j * (2 * np.pi * self.freq_offset * n + self.phase)
+            ).astype(np.complex64)
+        self.n += iq.size
+        if self.esn0_db is not None:
+            n0 = 10.0 ** (-self.esn0_db / 10.0)
+            sigma = np.sqrt(self.sps * n0 / 2.0)
+            noise = self.rng.normal(0, sigma, (iq.size, 2)).astype(np.float32)
+            iq = iq + noise[:, 0] + 1j * noise[:, 1]
+        return iq
 
 
 def awgn_channel(iq, esn0_db, sps=2, freq_offset=0.0, phase=0.0, seed=0):

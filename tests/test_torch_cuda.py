@@ -30,6 +30,8 @@ from dvbs2rx_tpu_torch.ops.ldpc import LDPCDecoder
 from dvbs2rx_tpu_torch.rx.receiver import RxConfig
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
 
+from chip_smoke import _gardner_waveform
+
 pytestmark = pytest.mark.cuda
 
 
@@ -527,3 +529,180 @@ def test_batched_acm_receiver_on_card_matches_cpu(card):
         np.testing.assert_array_equal(ts_g[ch], ts_c[ch])
         _assert_host_same(g.chans[ch], c.chans[ch])
         assert ts_c[ch].size >= 188 * 30
+
+
+def _gardner_case(card, method, sps, C, n_syms):
+    """A SymbolSync on the card, C channels of waveforms (one seed and delay
+    each, the last one cut short so its strobes reach the window clamp) and
+    distinct starting states."""
+    from dvbs2rx_tpu_torch.ops.frontend import SymbolSync
+
+    sync = SymbolSync(sps=sps, interp_method=method, device=card,
+                      loop_bw=0.005 if sps == 4 else 0.01,
+                      damping=0.707 if sps == 4 else 1.0)
+    waves = [_gardner_waveform(n_syms, sps, seed=10 + c,
+                               frac_delay=0.1 + 0.8 * c / max(C, 1))
+             for c in range(C)]
+    n = min(w.shape[0] for w in waves)
+    x = torch.from_numpy(np.stack([w[:n] for w in waves])).to(card)
+    st = sync.init_state(C)
+    rng = np.random.default_rng(C)
+    st.mu = torch.from_numpy(rng.uniform(0, 1, C).astype(np.float32)).to(card)
+    n_out = n // sps - 20
+    return sync, x, st, n_out
+
+
+GARDNER_INT = ("jump", "n")
+GARDNER_FLOAT = ("cnt", "mu", "vi", "last_xi")
+
+
+@pytest.mark.parametrize("method", ["polyphase", "linear", "quadratic",
+                                    "cubic"])
+@pytest.mark.parametrize("C", [1, 8])
+def test_gardner_kernel_matches_plain(card, method, C):
+    """One launch of the Gardner kernel against the plain loop on the card:
+    integers equal, symbols and float state within 1e-5 (the two keep the
+    same float32 operations in the same order; the plain version's float64
+    emulation of an FMA can round twice)."""
+    from dvbs2rx_tpu_torch.ops import gardner_cuda
+
+    sync, x, st, n_out = _gardner_case(card, method, 2, C, 700)
+    before = gardner_cuda.LAUNCHES
+    got_st, got = sync.step(st, x, n_out + 40)    # past the block's end
+    assert gardner_cuda.LAUNCHES == before + 1
+    want_st, want = gardner_cuda.symbol_sync_plain(sync, st, x, n_out + 40)
+    assert int(want_st.n.min()) >= x.shape[1]      # the clamp was reached
+    for k in GARDNER_INT:
+        torch.testing.assert_close(getattr(got_st, k), getattr(want_st, k),
+                                   rtol=0, atol=0)
+    for k in GARDNER_FLOAT:
+        torch.testing.assert_close(getattr(got_st, k), getattr(want_st, k),
+                                   rtol=0, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_gardner_kernel_sps4_and_tiles(card, monkeypatch):
+    """Polyphase at sps 4 (41 taps: the tree-reduction order), once with
+    the whole window in one tile and once with tiles of 600 samples, which
+    the walker must reload as it goes."""
+    from dvbs2rx_tpu_torch.ops import gardner_cuda
+
+    sync, x, st, n_out = _gardner_case(card, "polyphase", 4, 3, 700)
+    want_st, want = gardner_cuda.symbol_sync_plain(sync, st, x, n_out)
+    plan = gardner_cuda.launch_plan
+    for tile in (None, 600):
+        if tile:
+            monkeypatch.setattr(
+                gardner_cuda, "launch_plan",
+                lambda n, W, mid, tf: gardner_cuda.GardnerPlan(
+                    tf, tile, -(-tf * 4 // 16) * 16 + 8 * tile))
+        got_st, got = sync.step(st, x, n_out)
+        for k in GARDNER_INT + GARDNER_FLOAT:
+            torch.testing.assert_close(getattr(got_st, k),
+                                       getattr(want_st, k), rtol=0,
+                                       atol=1e-5)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    monkeypatch.setattr(gardner_cuda, "launch_plan", plan)
+
+
+def test_gardner_on_card_never_runs_the_plain_loop(card, monkeypatch):
+    from dvbs2rx_tpu_torch.ops import gardner_cuda
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain loop ran on a CUDA tensor")
+
+    monkeypatch.setattr(gardner_cuda, "symbol_sync_plain", refuse)
+    for method in ("polyphase", "linear", "quadratic", "cubic"):
+        sync, x, st, n_out = _gardner_case(card, method, 2, 2, 300)
+        before = gardner_cuda.LAUNCHES
+        _, sym = sync.step(st, x, n_out)
+        assert gardner_cuda.LAUNCHES == before + 1
+        assert sym.is_cuda and bool(torch.isfinite(sym).all())
+
+
+# (d) short: 5 short QPSK 1/2 frames delayed by 0.4 sample at 9 dB. Both
+# receivers, JAX's and the port's, give the first 13 packets sent on this
+# IQ (tests/test_torch_gardner_rx.py holds them to it): no frame goes to
+# acquisition, and the stream's last two frames are not decoded, with ffw
+# timing too (the tail of the stream, not the Gardner loop).
+GARDNER_CCM_RX = dict(modcod="qpsk1/2", frame_size="short", fec_batch=4,
+                      sym_sync_impl="gardner")
+GARDNER_CCM_PACKETS = 13
+
+
+def gardner_ccm_iq():
+    """(iq, packets) of the (d)-short stimulus."""
+    tx = Transmitter(TxConfig(modcod="qpsk1/2", frame_size="short"))
+    rng = np.random.default_rng(5)
+    pkts = rng.integers(0, 256, (5 * tx.df_bytes // 188, 188),
+                        dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    clean = tx.ts_to_iq(pkts.reshape(-1))
+    iq = awgn_channel((clean[1:] * 0.6 + clean[:-1] * 0.4).astype(
+        np.complex64), 9.0, sps=2, seed=6)
+    return iq, pkts
+
+
+def test_gardner_receiver_on_card_matches_cpu(card):
+    """(d) short: ``Receiver`` with Gardner timing on short QPSK 1/2 with a
+    fractional timing offset: TS bytes and counters equal on the card and
+    on the CPU, the first GARDNER_CCM_PACKETS packets sent as JAX gives
+    them, one Gardner launch per front-end block."""
+    from dvbs2rx_tpu_torch.ops import gardner_cuda
+    from dvbs2rx_tpu_torch.rx.receiver import make_receiver
+
+    iq, pkts = gardner_ccm_iq()
+    cfg = RxConfig(**GARDNER_CCM_RX)
+    launches, blocks = {}, {}
+
+    def run(rx):
+        before = gardner_cuda.LAUNCHES
+        orig = rx._call
+        n = blocks[rx.device.type] = [0]
+
+        def call(key, fn, args):
+            n[0] += key[0] == "fe"
+            return orig(key, fn, args)
+
+        rx._call = call
+        out = rx.receive(iq)
+        launches[rx.device.type] = gardner_cuda.LAUNCHES - before
+        return out
+
+    g, c, ts_g, ts_c = _host_pair(lambda d: make_receiver(cfg, device=d),
+                                  run)
+    np.testing.assert_array_equal(ts_g, ts_c)
+    _assert_host_same(g, c)
+    assert c.stats.locked and c.stats.bch_frame_errors == 0
+    np.testing.assert_array_equal(ts_c.reshape(-1, 188),
+                                  pkts[:GARDNER_CCM_PACKETS])
+    assert launches["cpu"] == 0 and blocks["cuda"][0] >= 5
+    assert launches["cuda"] == blocks["cuda"][0]
+
+
+def test_gardner_batched_acm_on_card_matches_cpu(card):
+    """(g) short: ``BatchedACMReceiver`` with Gardner timing, 2 channels:
+    each channel's TS bytes and counters equal on the card and on the CPU,
+    every front-end group one launch for both channels."""
+    from dvbs2rx_tpu_torch.ops import gardner_cuda
+    from dvbs2rx_tpu_torch.rx.acm_batch import BatchedACMReceiver
+
+    _, iq = _vcm_case([0, -1, 1], 60)
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short", pilots=True,
+                   acm_vcm=True, fec_batch=4, sym_sync_impl="gardner")
+    launches = {}
+
+    def run(brx):
+        before = gardner_cuda.LAUNCHES
+        out = brx.receive(iq)
+        launches[brx.device.type] = gardner_cuda.LAUNCHES - before
+        return out
+
+    g, c, ts_g, ts_c = _host_pair(
+        lambda d: BatchedACMReceiver(cfg, 2, device=d), run)
+    for ch in range(2):
+        np.testing.assert_array_equal(ts_g[ch], ts_c[ch])
+        _assert_host_same(g.chans[ch], c.chans[ch])
+        assert ts_c[ch].size >= 188 * 10
+    assert launches["cpu"] == 0
+    assert 0 < launches["cuda"] <= iq.shape[1] // (2 * 4096) + 3

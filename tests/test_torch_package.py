@@ -52,6 +52,8 @@ def test_every_module_imports_without_jax():
     assert "dvbs2rx_tpu_torch.rx.vcm_stream" in mods
     assert "dvbs2rx_tpu_torch.tx.vcm" in mods
     assert "dvbs2rx_tpu_torch.rx.acm_batch" in mods
+    assert "dvbs2rx_tpu_torch.ops.gardner_cuda" in mods
+    assert "dvbs2rx_tpu_torch.ops.resample" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -217,15 +217,31 @@ def test_refined_n0_conversion():
 
 
 def test_gardner_sync_is_not_ported():
-    """The Gardner loop raises, naming the roadmap; an unknown timing
-    implementation is a ValueError, as in the JAX receiver."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Receiver(RxConfig(modcod="qpsk1/2", frame_size="short",
-                          sym_sync_impl="gardner"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_receiver(RxConfig(modcod="qpsk1/2", frame_size="short",
-                               acm_vcm=True, sym_sync_impl="gardner"),
-                      device="cpu")
+    """Routing of ``sym_sync_impl`` (the name is kept from when the Gardner
+    loop was not ported): "gardner" builds a ``SymbolSync`` with the
+    configured loop, in ``Receiver`` and ``ACMReceiver`` at any even sps,
+    as the JAX receiver does; an unknown implementation is a ValueError."""
+    from dvbs2rx_tpu_torch.ops.ffsync import FeedForwardSync
+    from dvbs2rx_tpu_torch.ops.frontend import SymbolSync
+
+    rx = Receiver(RxConfig(modcod="qpsk1/2", frame_size="short", sps=4,
+                           sym_sync_impl="gardner", sym_sync_loop_bw=0.005,
+                           damping=0.707), device="cpu")
+    jrx = JReceiver(JRxConfig(modcod="qpsk1/2", frame_size="short", sps=4,
+                              sym_sync_impl="gardner",
+                              sym_sync_loop_bw=0.005, damping=0.707))
+    assert isinstance(rx.sym_sync, SymbolSync) and rx.sym_sync.sps == 4
+    assert rx.sym_sync.history() == jrx.sym_sync.history()
+    assert rx._fe_nsamp == jrx._fe_nsamp
+    assert (rx.sym_sync.K1, rx.sym_sync.K2) == \
+        tuple(float(np.float32(k)) for k in (jrx.sym_sync.K1,
+                                             jrx.sym_sync.K2))
+    acm = make_receiver(RxConfig(modcod="qpsk1/2", frame_size="short",
+                                 acm_vcm=True, sym_sync_impl="gardner"),
+                        device="cpu")
+    assert type(acm) is ACMReceiver and isinstance(acm.sym_sync, SymbolSync)
+    assert isinstance(make_receiver(RxConfig(modcod="qpsk1/2"),
+                                    device="cpu").sym_sync, FeedForwardSync)
     with pytest.raises(ValueError, match="sym_sync_impl"):
         Receiver(RxConfig(modcod="qpsk1/2", frame_size="short",
                           sym_sync_impl="nope"), device="cpu")

@@ -219,9 +219,18 @@ def test_vcm_transmitter_gives_the_same_symbols(schedule):
 
 
 def test_transmitter_refuses_fractional_sps():
-    with pytest.raises(NotImplementedError):
-        transmitter.TxConfig(modcod="qpsk1/2", sps=2.5)
+    """Named from when the port had no resampler: fractional sps is now
+    taken as the JAX ``TxConfig`` takes it (integers stay ``int``, a
+    fractional sps must exceed 1), and shapes the same waveform."""
     assert transmitter.TxConfig(modcod="qpsk1/2", sps=4.0).sps == 4
+    assert transmitter.TxConfig(modcod="qpsk1/2", sps=2.5).sps == 2.5
+    with pytest.raises(ValueError):
+        transmitter.TxConfig(modcod="qpsk1/2", sps=0.75)
+    kw = dict(modcod="qpsk1/2", frame_size="short", sps=2.5)
+    ts = _packets(40, seed=3)
+    np.testing.assert_array_equal(
+        transmitter.Transmitter(transmitter.TxConfig(**kw)).ts_to_iq(ts),
+        jtx.Transmitter(jtx.TxConfig(**kw)).ts_to_iq(ts))
 
 
 def _stitch_inputs():

@@ -13,7 +13,11 @@ them on ``chip_smoke.py``'s inputs with its timer (``_time_ms``: median of
   ``CudaLDPCDecoder.decode_lane_major`` on a contiguous (N, B) input;
 * ``ldpc_iter_us``: one LDPC iteration, from random S2_B4 LLRs at B = 128
   (no frame converges): the time at max_trials 4 less that at 0, over 4;
-* ``mf_ms``: ``fir_cuda.mf_segmented`` at the headline shape of phase 3.
+* ``mf_ms``: ``fir_cuda.mf_segmented`` at the headline shape of phase 3;
+* ``gardner_ms``: ``SymbolSync.step`` (the Gardner kernel) on one
+  4,096-symbol front-end block of phase 8's waveform, polyphase at sps 2
+  and 4 (``gardner_sps4_ms``), one channel; null for a checkout without
+  the Gardner kernel.
 
 It prints one JSON line per run, with a digest of the LDPC case's four
 outputs, and a last line with each checkout's times and whether every
@@ -62,10 +66,26 @@ def child(root: str):
             lambda: dec.decode_lane_major(rT))
     args = chip_smoke._mf_args()
     mf_ms = chip_smoke._time_ms(lambda: fir_cuda.mf_segmented(*args))
+    gardner = {"gardner_ms": None, "gardner_sps4_ms": None}
+    try:
+        from dvbs2rx_tpu_torch.ops.frontend import SymbolSync
+    except ImportError:         # a checkout from before the Gardner kernel
+        SymbolSync = None
+    for key, sps in (("gardner_ms", 2), ("gardner_sps4_ms", 4)):
+        if SymbolSync is None:
+            break
+        sync = SymbolSync(sps=sps, device="cuda")
+        n = 4096 * sps + sync.history() + 64
+        x = torch.from_numpy(chip_smoke._gardner_waveform(
+            4136, sps, seed=900, frac_delay=0.15)[None, :n]).cuda()
+        st = sync.init_state(1)
+        for t in sync.step(st, x, 4096)[1:]:
+            h.update(t.cpu().numpy().tobytes())
+        gardner[key] = chip_smoke._time_ms(lambda: sync.step(st, x, 4096))
     print(json.dumps({
         "root": root, "ldpc_ms": ldpc_ms,
         "ldpc_iter_us": (per_trials[4] - per_trials[0]) / 4 * 1e3,
-        "mf_ms": mf_ms, "digest": h.hexdigest()[:16]}))
+        "mf_ms": mf_ms, **gardner, "digest": h.hexdigest()[:16]}))
 
 
 def main():
@@ -92,7 +112,8 @@ def main():
             print(line, flush=True)
             runs.append(json.loads(line))
     summary = {root: {k: [x[k] for x in runs if x["root"] == root]
-                      for k in ("ldpc_ms", "ldpc_iter_us", "mf_ms")}
+                      for k in ("ldpc_ms", "ldpc_iter_us", "mf_ms",
+                                "gardner_ms", "gardner_sps4_ms")}
                for root in args.roots}
     print(json.dumps({"runs": summary,
                       "same_outputs": len({x["digest"] for x in runs}) == 1}))

@@ -3,6 +3,7 @@
 
     python3 tools/torch_profile_step.py [--steps 3] [--path ccm|vcm]
     python3 tools/torch_profile_step.py --path host-ccm|host-acm
+    python3 tools/torch_profile_step.py --path host-gardner|host-resample
 
 Builds chip_smoke.py's configuration and stimulus of one path: ``ccm``
 (phase 5: 64 channels, QPSK 1/2 normal pilotless at Es/N0 6 dB, a
@@ -25,7 +26,11 @@ phase 7's (a) ``Receiver`` or (b) blind ``ACMReceiver`` run, whole (every
 chunk and the flush), once timed (host clock), once under
 ``torch.profiler`` (device busy, idle share, launches, kernels by device
 time) and once under ``cProfile`` (host functions by own time), each on a
-fresh receiver after one warm-up run. Needs one CUDA card.
+fresh receiver after one warm-up run. ``host-gardner`` and
+``host-resample`` do the same for phase 8's (d) ``Receiver`` with Gardner
+timing and (f) ``DeviceResampler(0.8)`` in front of the ``ffw``
+``Receiver``; every host path also reports the kernel launches per
+front-end block. Needs one CUDA card.
 """
 
 import argparse
@@ -43,7 +48,8 @@ sys.path.insert(0, str(ROOT))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--path", choices=("ccm", "vcm", "host-ccm", "host-acm"),
+    ap.add_argument("--path", choices=("ccm", "vcm", "host-ccm", "host-acm",
+                                       "host-gardner", "host-resample"),
                     default="ccm")
     ap.add_argument("--engine", action="store_true")
     args = ap.parse_args()
@@ -132,9 +138,9 @@ def _kernel_rows(prof):
 
 
 def _host_profile(path):
-    """One host receiver run of chip_smoke phase 7 (a) or (b): wall, device
-    busy and launches under torch.profiler, host functions under
-    cProfile."""
+    """One host receiver run of chip_smoke phase 7 (a), (b) or phase 8 (d),
+    (f): wall, device busy and launches (per front-end block too) under
+    torch.profiler, host functions under cProfile."""
     import cProfile
     import pstats
 
@@ -142,26 +148,42 @@ def _host_profile(path):
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+    from dvbs2rx_tpu_torch.ops.resample import DeviceResampler
     from dvbs2rx_tpu_torch.rx.receiver import RxConfig, make_receiver
 
+    resample = None
     if path == "host-ccm":
         cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
         iq, _ = chip_smoke._ccm_host_stimulus()
-        chunks = np.array_split(iq, chip_smoke.HOST_CHUNKS)
+    elif path == "host-gardner":
+        cfg = RxConfig(modcod="qpsk1/2", frame_size="normal",
+                       sym_sync_impl="gardner")
+        iq, _ = chip_smoke._ccm_host_stimulus(delay=chip_smoke.OS_DELAY)
+    elif path == "host-resample":
+        cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
+        iq, _ = chip_smoke._ccm_host_stimulus(sps=chip_smoke.OS_TX_SPS_F)
+        resample = 2.0 / chip_smoke.OS_TX_SPS_F
     else:
         cfg = RxConfig(modcod="qpsk1/2", frame_size="normal", pilots=True,
                        acm_vcm=True)
         iq = chip_smoke._acm_stimulus([500])[0][0]
-        chunks = np.array_split(iq, chip_smoke.ACM_CHUNKS)
+    n_chunks = (chip_smoke.ACM_CHUNKS if path == "host-acm"
+                else chip_smoke.HOST_CHUNKS)
+    chunks = np.array_split(iq, n_chunks)
+    blocks = []
 
     def run():
         rx = make_receiver(cfg)
+        calls = chip_smoke._count_calls(rx)
+        rs = DeviceResampler(resample) if resample else None
         for c in chunks:
-            rx.receive(c, flush=False)
-        rx.receive(np.empty(0, np.complex64), flush=True)
+            rx.receive(rs(c) if rs else c, flush=False)
+        rx.receive(rs.flush() if rs else np.empty(0, np.complex64),
+                   flush=True)
         torch.cuda.synchronize()
         if rx.stats.bch_frame_errors or not rx.stats.locked:
             raise AssertionError(f"{path}: {rx.stats}")
+        blocks.append(calls["fe"])
         return rx
 
     run()                                             # warm-up
@@ -176,11 +198,13 @@ def _host_profile(path):
     if busy == 0:
         raise RuntimeError("the profiler saw no device time")
     frames = rx.stats.bch_frames
-    print(f"{path}: {iq.size} samples, {frames} FEC frames; run wall "
-          f"{wall:.3f} s = {iq.size / wall / 1e6:.3f} Msps; device busy "
+    launches = sum(r[2] for r in rows)
+    print(f"{path}: {iq.size} samples, {frames} FEC frames, {blocks[-1]} "
+          f"front-end blocks; run wall {wall:.3f} s = "
+          f"{iq.size / wall / 1e6:.3f} Msps; device busy "
           f"{busy * 1e3:.2f} ms, idle {1 - busy / wall:.1%} of the run; "
-          f"{sum(r[2] for r in rows)} kernel launches "
-          f"({sum(r[2] for r in rows) / frames:.0f} per frame)")
+          f"{launches} kernel launches ({launches / frames:.0f} per frame, "
+          f"{launches / blocks[-1]:.1f} per front-end block)")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {us / 1e3:9.3f} ms {us / 1e6 / busy:6.1%} {n:6d} launches  "
               f"{key[:90]}")
