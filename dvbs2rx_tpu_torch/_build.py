@@ -35,7 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # stream, c_int for each int (ctypes would otherwise cut a pointer to 32
 # bits), c_float for each float
 _SIGNATURES = {
-    "gardner_launch": [_P] * 15 + [_I] * 10 + [_F] * 4 + [_P],
+    "gardner_launch": [_P] * 16 + [_I] * 11 + [_F] * 4 + [_P],
+    "gardner_smem_bytes": [_I] * 2,
     "mf_segmented_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "mf_segmented_smem_bytes": [_I] * 2,
     "mf_segmented_grid_blocks": [_I] * 2,

@@ -7,6 +7,13 @@ channel (its source note says what bounds it: the per-symbol dependency
 chain, not bytes or operations). ``symbol_sync_plain`` is its plain
 version: a Python loop over symbols, vectorised over the channels.
 
+With the polyphase interpolator the kernel's helper threads compute the
+next symbol's interpolant pair ahead of the walker for a set of candidate
+(jump, subfilter) pairs around the expected one (``GardnerPlan``); the
+walker takes the pair of its true strobe from them (a hit) or computes it
+itself (a miss). Either way the bits are the same. ``speculation_counts``
+reads the hits and misses summed over launches.
+
 Numeric contract. A float decides an integer at every strobe (the jump,
 the subfilter index), so one changed rounding moves every later symbol.
 Both versions repeat the float32 arithmetic of the JAX body as XLA's CPU
@@ -39,6 +46,15 @@ LAUNCHES = 0     # kernel launches; incremented only where the kernel runs
 
 SMEM_LIMIT = 232_448        # shared memory one block may use on Hopper
 TREE_WINDOW = 32            # window of XLA's CPU tree reduction rewriter
+# csrc/gardner.cu's constants (kThreads, kWalkers, kHeadBytes; a slot is
+# one float4 pair): warp 0 walks, each other pair of threads is one
+# candidate
+THREADS = 128
+WALKERS = 32
+HEAD_BYTES = 64
+SLOT_BYTES = 16
+
+_SPEC = {}       # device -> int64 (2,): speculation hits, misses (on the card)
 
 INTERP_METHODS = ("polyphase", "linear", "quadratic", "cubic")
 
@@ -177,23 +193,53 @@ def symbol_sync_plain(sync, state: SymbolSyncState, samples, n_out: int):
 
 @dataclass(frozen=True)
 class GardnerPlan:
-    """How one call is staged: the taps table (``table_floats`` floats,
-    padded to 16 bytes) and a sample tile of ``tile`` samples in shared
-    memory, ``smem_bytes`` in all. A tile holds the whole block when it
-    fits (sps 2 and 4 at the 4,096-symbol front-end block); otherwise the
-    kernel reloads it where the next strobe's windows begin."""
+    """How one call is staged: a header, two buffers of candidate slots,
+    the taps table (``table_floats`` floats, padded to 16 bytes) and a
+    sample tile of ``tile`` samples in shared memory, ``smem_bytes`` in
+    all. A tile holds the whole block when it fits (sps 2 and 4 at the
+    4,096-symbol front-end block); otherwise the kernel reloads it where
+    the next strobe's windows begin. The polyphase walker is offered
+    ``n_cand`` candidates per symbol: the subfilters from ``(n_cand - 1)
+    // 2`` below the expected one upward at jump sps, carried across the
+    wrap of mu (below subfilter 0: jump sps - 1 from the top subfilter
+    down; from ``n_subfilt`` up: jump sps + 1)."""
     table_floats: int
     tile: int
+    n_cand: int
     smem_bytes: int
 
 
-def launch_plan(n, W, midpoint, table_floats):
+def launch_plan(n, W, midpoint, table_floats, max_tile=None, n_cand=None):
+    """The kernel's staging for an n-sample block with windows of W taps.
+    ``max_tile`` caps the tile (tests force reloads with it); ``n_cand``
+    narrows the candidate set (1: only the expected pair)."""
+    slots = (THREADS - WALKERS) // 2
+    n_cand = slots if n_cand is None else n_cand
+    if not 1 <= n_cand <= slots:
+        raise ValueError(f"n_cand {n_cand} outside 1..{slots}")
     table_bytes = -(-table_floats * 4 // 16) * 16
-    tile = min(n, (SMEM_LIMIT - table_bytes) // 8)
+    fixed = HEAD_BYTES + 2 * slots * SLOT_BYTES + table_bytes
+    tile = min(n, (SMEM_LIMIT - fixed) // 8, max_tile or n)
     if tile < W + midpoint:
         raise ValueError(f"a tile of {tile} samples cannot hold one strobe's "
                          f"windows ({W} + {midpoint})")
-    return GardnerPlan(table_floats, tile, table_bytes + 8 * tile)
+    return GardnerPlan(table_floats, tile, n_cand, fixed + 8 * tile)
+
+
+def speculation_counts():
+    """(hits, misses) of the polyphase walker, summed over every launch on
+    every card since the last ``reset_speculation_counts`` (reads the card,
+    so it waits for the launches)."""
+    hits = misses = 0
+    for t in _SPEC.values():
+        h, m = t.tolist()
+        hits, misses = hits + h, misses + m
+    return hits, misses
+
+
+def reset_speculation_counts():
+    for t in _SPEC.values():
+        t.zero_()
 
 
 def _check(sync, state, samples, n_out):
@@ -224,11 +270,27 @@ def symbol_sync(sync, state: SymbolSyncState, samples, n_out: int):
     _check(sync, state, samples, n_out)
     if not samples.is_cuda:
         return symbol_sync_plain(sync, state, samples, n_out)
+    dev = samples.device
+    counts = _SPEC.get(dev)
+    if counts is None:
+        counts = _SPEC[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    out = _launch(_build.lib(), sync, state, samples, n_out, counts,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES += 1
+    return out
+
+
+def _launch(lib, sync, state, samples, n_out, counts, stream, plan=None):
+    """Launch ``lib``'s ``gardner_launch`` on the tensors' memory with
+    ``launch_plan``'s staging (or ``plan``); ``counts`` (2,) int64 gathers
+    the speculation hits and misses. Raises if the launch fails."""
     C, n, _ = samples.shape
     dev = samples.device
     table, W, lead = window(sync)
     tab = None if table is None else device_table(table, dev)
-    plan = launch_plan(n, W, sync.midpoint, 0 if tab is None else tab.numel())
+    if plan is None:
+        plan = launch_plan(n, W, sync.midpoint,
+                           0 if tab is None else tab.numel())
     x = samples.contiguous()
     if x.data_ptr() % 8:
         raise ValueError("samples must be 8-byte aligned (float2 reads)")
@@ -238,14 +300,13 @@ def symbol_sync(sync, state: SymbolSyncState, samples, n_out: int):
            state.n.to(i32).contiguous(), state.last_xi.to(f32).contiguous()]
     outs = [torch.empty_like(t) for t in ins]
     sym = torch.empty((C, n_out, 2), dtype=f32, device=dev)
-    err = _build.lib().gardner_launch(
+    err = lib.gardner_launch(
         x.data_ptr(), 0 if tab is None else tab.data_ptr(), sym.data_ptr(),
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-        C, n, n_out, sync.interp, W, lead, sync.midpoint, sync.n_subfilt,
-        plan.table_floats, plan.tile, sync.K1, sync.K2, sync.nominal,
-        sync.mu_max, torch.cuda.current_stream(dev).cuda_stream,
+        counts.data_ptr(), C, n, n_out, sync.interp, W, lead, sync.midpoint,
+        sync.n_subfilt, plan.table_floats, plan.tile, plan.n_cand,
+        sync.K1, sync.K2, sync.nominal, sync.mu_max, stream,
     )
     _build.check(err, "gardner_kernel")
-    LAUNCHES += 1
     cnt, mu, vi, jump, pos, last = outs
     return SymbolSyncState(cnt, mu, vi, jump, last, pos), sym

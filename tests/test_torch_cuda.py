@@ -14,6 +14,8 @@ order); the stream step's
 float statistics within rtol 1e-4 (card vs CPU float32 arithmetic).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -591,11 +593,8 @@ def test_gardner_kernel_sps4_and_tiles(card, monkeypatch):
     want_st, want = gardner_cuda.symbol_sync_plain(sync, st, x, n_out)
     plan = gardner_cuda.launch_plan
     for tile in (None, 600):
-        if tile:
-            monkeypatch.setattr(
-                gardner_cuda, "launch_plan",
-                lambda n, W, mid, tf: gardner_cuda.GardnerPlan(
-                    tf, tile, -(-tf * 4 // 16) * 16 + 8 * tile))
+        monkeypatch.setattr(gardner_cuda, "launch_plan",
+                            functools.partial(plan, max_tile=tile))
         got_st, got = sync.step(st, x, n_out)
         for k in GARDNER_INT + GARDNER_FLOAT:
             torch.testing.assert_close(getattr(got_st, k),
@@ -603,6 +602,132 @@ def test_gardner_kernel_sps4_and_tiles(card, monkeypatch):
                                        atol=1e-5)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     monkeypatch.setattr(gardner_cuda, "launch_plan", plan)
+
+
+def _assert_gardner_equal(got, want):
+    (got_st, got_sym), (want_st, want_sym) = got, want
+    for k in GARDNER_INT:
+        torch.testing.assert_close(getattr(got_st, k), getattr(want_st, k),
+                                   rtol=0, atol=0)
+    for k in GARDNER_FLOAT:
+        torch.testing.assert_close(getattr(got_st, k), getattr(want_st, k),
+                                   rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_sym, want_sym, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("sps", [2, 4])
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_gardner_speculation_matches_plain(card, monkeypatch, sps, C):
+    """The polyphase kernel (walker and candidate helpers) against the
+    plain loop at sps 2 and 4, C = 1, 3 and 8, with the block in one tile
+    and in tiles of 600 samples; the walker took most pairs from the
+    helpers, and the kernel's shared memory is the plan's."""
+    from dvbs2rx_tpu_torch import _build
+    from dvbs2rx_tpu_torch.ops import gardner_cuda
+
+    sync, x, st, n_out = _gardner_case(card, "polyphase", sps, C, 700)
+    want = gardner_cuda.symbol_sync_plain(sync, st, x, n_out)
+    plan = gardner_cuda.launch_plan
+    for tile in (None, 600):
+        p = plan(x.shape[1], sync.subfilt_len, sync.midpoint,
+                 sync._bank.size, max_tile=tile)
+        assert _build.lib().gardner_smem_bytes(p.table_floats, p.tile) \
+            == p.smem_bytes
+        monkeypatch.setattr(gardner_cuda, "launch_plan",
+                            functools.partial(plan, max_tile=tile))
+        gardner_cuda.reset_speculation_counts()
+        got = sync.step(st, x, n_out)
+        hits, misses = gardner_cuda.speculation_counts()
+        _assert_gardner_equal(got, want)
+        assert hits + misses <= C * n_out
+        assert hits >= 0.9 * C * n_out, (hits, misses)
+    monkeypatch.setattr(gardner_cuda, "launch_plan", plan)
+
+
+@pytest.mark.parametrize("sps", [2, 4])
+def test_gardner_misses_give_the_plain_bits(card, monkeypatch, sps):
+    """One candidate per symbol (only the expected strobe and subfilter):
+    the walker misses often and computes those pairs itself; hits and
+    misses both give the plain loop's bits. Under the full candidate set a
+    waveform whose timing steps by half a sample mid-block gives them too
+    (the loop follows the step a few subfilters per symbol, so the walker
+    still takes most pairs from the helpers)."""
+    from dvbs2rx_tpu_torch.ops import gardner_cuda
+
+    sync, x, st, n_out = _gardner_case(card, "polyphase", sps, 2, 700)
+    want = gardner_cuda.symbol_sync_plain(sync, st, x, n_out)
+    plan = gardner_cuda.launch_plan
+    monkeypatch.setattr(gardner_cuda, "launch_plan",
+                        functools.partial(plan, n_cand=1))
+    gardner_cuda.reset_speculation_counts()
+    got = sync.step(st, x, n_out)
+    hits, misses = gardner_cuda.speculation_counts()
+    _assert_gardner_equal(got, want)
+    assert misses > 0 and hits > 0, (hits, misses)
+    monkeypatch.setattr(gardner_cuda, "launch_plan", plan)
+    # a half-sample timing step in the middle of the block
+    half = 350 * sps
+    a = _gardner_waveform(700, sps, seed=31, frac_delay=0.0)
+    b = _gardner_waveform(700, sps, seed=31, frac_delay=0.5)
+    step = torch.from_numpy(np.concatenate([a[:half], b[half:]])[None]).to(
+        card)
+    st1 = sync.init_state(1)
+    want = gardner_cuda.symbol_sync_plain(sync, st1, step, n_out)
+    gardner_cuda.reset_speculation_counts()
+    _assert_gardner_equal(sync.step(st1, step, n_out), want)
+    hits, misses = gardner_cuda.speculation_counts()
+    assert hits > 0.9 * n_out, (hits, misses)
+
+
+def _clock_offset_waveform(n_syms, sps, offset, seed, noise=0.1, span=10):
+    """(n, 2) float32: RRC-shaped QPSK (rolloff 0.2, +-span symbols) at
+    sps * (1 + offset) samples per symbol, a sample-clock offset against
+    the receiver's sps, with complex noise of std ``noise`` per rail."""
+    from dvbs2rx_tpu_torch.ops.resample import rrc_continuous
+
+    rng = np.random.default_rng(seed)
+    s = (1 - 2 * rng.integers(0, 2, (n_syms, 2))) @ [1, 1j] / np.sqrt(2)
+    T = sps * (1 + offset)
+    t = np.arange(int((n_syms - 2 * span) * T)) / T + span   # in symbols
+    k = np.floor(t).astype(int)[:, None] + np.arange(-span, span + 1)
+    iq = (s[k] * rrc_continuous(t[:, None] - k, 0.2)).sum(1)
+    iq = iq + noise * (rng.normal(size=iq.size)
+                       + 1j * rng.normal(size=iq.size))
+    return cplx.from_np(iq.astype(np.complex64))
+
+
+@pytest.mark.parametrize("offset", [1e-3, -1e-3])
+@pytest.mark.parametrize("sps", [2, 4])
+def test_gardner_wrap_candidates_give_the_plain_bits(card, sps, offset):
+    """A +-1000 ppm sample-clock offset makes mu wrap through 0/1 again and
+    again, so strobes take jumps of sps - 1 and sps + 1: the candidates the
+    helpers reach through the carry into the neighbouring jump. After 300
+    symbols of lock, 900 symbols through the kernel: the plain loop's
+    strobes (one symbol per call) take both neighbour jumps and follow the
+    offset's sign, the walker takes every pair after the first from the
+    helpers (no miss), and the bits are the plain loop's."""
+    from dvbs2rx_tpu_torch.ops import gardner_cuda
+    from dvbs2rx_tpu_torch.ops.frontend import SymbolSync
+
+    kw = dict(loop_bw=0.005, damping=0.707) if sps == 4 else {}
+    sync = SymbolSync(sps=sps, device=card, **kw)
+    x = torch.from_numpy(_clock_offset_waveform(1300, sps, offset, 7)[None]
+                         ).to(card)
+    st, _ = gardner_cuda.symbol_sync_plain(sync, sync.init_state(1), x, 300)
+    n_out = 900
+    want = gardner_cuda.symbol_sync_plain(sync, st, x, n_out)
+    jumps, s = [], st
+    for _ in range(n_out - 1):
+        s, _ = gardner_cuda.symbol_sync_plain(sync, s, x, 1)
+        jumps.append(int(s.jump[0]))     # the jump to strobes 1 .. n_out-1
+    assert {sps - 1, sps + 1} <= set(jumps) <= {sps - 1, sps, sps + 1}
+    assert np.sign(sum(jumps) - (n_out - 1) * sps) == np.sign(offset)
+    assert int(want[0].n[0]) == int(st.n[0] + st.jump[0]) + sum(jumps)
+    gardner_cuda.reset_speculation_counts()
+    got = sync.step(st, x, n_out)
+    hits, misses = gardner_cuda.speculation_counts()
+    _assert_gardner_equal(got, want)
+    assert (hits, misses) == (n_out - 1, 0), (hits, misses)
 
 
 def test_gardner_on_card_never_runs_the_plain_loop(card, monkeypatch):

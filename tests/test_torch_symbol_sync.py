@@ -13,6 +13,8 @@ room for the plain version's float64 FMA, which rounds twice in about
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,7 +29,7 @@ from dvbs2rx_tpu_torch.convert import (
     symbol_sync_state_from_numpy,
     symbol_sync_state_to_numpy,
 )
-from dvbs2rx_tpu_torch.ops import cplx, frontend
+from dvbs2rx_tpu_torch.ops import cplx, frontend, gardner_cuda
 from dvbs2rx_tpu_torch.ops.frontend import SymbolSync
 from dvbs2rx_tpu_torch.ops.resample import StreamResampler
 
@@ -204,3 +206,149 @@ def test_state_carries_over_from_jax():
     st2, syms = sync.step(st, torch.from_numpy(cplx.from_np(iq)[None]), 600)
     j2, jsyms = jsync.step(j1, cplx.from_np(iq), 600)
     assert_matches_jax(st2, syms, j2, jsyms)
+
+
+# ---- the kernel's launch plan and candidate rule (csrc/gardner.cu) ----
+
+def _kernel_constants():
+    src = (Path(gardner_cuda.__file__).resolve().parent.parent / "csrc"
+           / "gardner.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    return src, {k: int(v) for k, v in consts.items()}
+
+
+def test_launch_plan_mirrors_the_kernel_constants():
+    src, k = _kernel_constants()
+    assert k["kThreads"] == gardner_cuda.THREADS
+    assert k["kWalkers"] == gardner_cuda.WALKERS
+    assert k["kHeadBytes"] == gardner_cuda.HEAD_BYTES
+    assert k["kTreeWindow"] == gardner_cuda.TREE_WINDOW
+    assert k["kSmemLimit"] == gardner_cuda.SMEM_LIMIT
+    assert "constexpr int kCands = (kThreads - kWalkers) / 2;" in src
+    assert (f"constexpr int kSlotBytes = 2 * kCands * "
+            f"{gardner_cuda.SLOT_BYTES};") in src
+    # the header holds two int4 hand-off words and the tile's base and flag
+    assert gardner_cuda.HEAD_BYTES >= 2 * 16 + 8
+
+
+@pytest.mark.parametrize("sps", [2, 4])
+def test_launch_plan_fits_a_block_in_shared_memory(sps):
+    """Threads per block, shared memory within Hopper's 232,448 B for the
+    4,096-symbol front-end block (one tile), a forced small tile and a
+    block too long for one tile."""
+    G = gardner_cuda
+    assert G.THREADS % 32 == 0 and G.WALKERS == 32
+    assert G.WALKERS < G.THREADS <= 1024
+    sync = SymbolSync(sps=sps, device="cpu")
+    table, W, _ = G.window(sync)
+    tf = table.size
+    cands = (G.THREADS - G.WALKERS) // 2
+    fixed = G.HEAD_BYTES + 2 * cands * G.SLOT_BYTES \
+        + -(-tf * 4 // 16) * 16
+    n = 4096 * sps + sync.history() + 64
+    plan = G.launch_plan(n, W, sync.midpoint, tf)
+    assert plan.tile == n and plan.smem_bytes == fixed + 8 * n
+    assert plan.smem_bytes <= G.SMEM_LIMIT
+    assert plan.n_cand == cands
+    small = G.launch_plan(n, W, sync.midpoint, tf, max_tile=600)
+    assert small.tile == 600 and small.smem_bytes == fixed + 8 * 600
+    long = G.launch_plan(10 * n, W, sync.midpoint, tf)
+    assert long.tile < 10 * n
+    assert G.SMEM_LIMIT - 8 < long.smem_bytes <= G.SMEM_LIMIT
+    with pytest.raises(ValueError, match="cannot hold"):
+        G.launch_plan(n, W, sync.midpoint, tf, max_tile=W)
+    for bad in (0, cands + 1):
+        with pytest.raises(ValueError, match="n_cand"):
+            G.launch_plan(n, W, sync.midpoint, tf, n_cand=bad)
+
+
+def candidates(sps, n_subfilt, center, plan):
+    """The (jump, subfilter) pairs the kernel's helpers compute for the
+    next symbol when the last one's subfilter is ``center``, as its
+    ``speculate`` forms them: subfilters center - (n_cand - 1) // 2 ..
+    upward at jump sps, carried across the wrap of mu (below 0: jump sps -
+    1 from the top subfilter down; from n_subfilt up: jump sps + 1), one per
+    helper pair."""
+    below = (plan.n_cand - 1) // 2
+    out = []
+    for i in range(plan.n_cand):
+        jump, t = divmod(center - below + i, n_subfilt)
+        out.append((sps + jump, t))
+    return out
+
+
+def candidate_slot(sps, n_subfilt, center, plan, jump, isub):
+    """Which candidate the kernel's walker takes for its true (jump,
+    isub), as its ``walk`` finds it; None on a miss."""
+    i = (jump - sps) * n_subfilt + isub - center + (plan.n_cand - 1) // 2
+    return i if 0 <= i < plan.n_cand else None
+
+
+@pytest.mark.parametrize("sps", [2, 4])
+def test_candidates_cover_the_neighbour_jumps_and_the_wrap(sps):
+    G = gardner_cuda
+    N = 128
+    plan = G.launch_plan(8192, 41, 2, N * 41)
+    seen = set()
+    for center in (0, 1, (plan.n_cand - 1) // 2, N // 2, N - 2, N - 1):
+        cands = candidates(sps, N, center, plan)
+        assert len(set(cands)) == plan.n_cand
+        for i, (jump, isub) in enumerate(cands):
+            assert 0 <= isub < N
+            assert candidate_slot(sps, N, center, plan, jump, isub) == i
+        assert (sps, center) in cands
+        seen |= {j for j, _ in cands}
+        if center == 0:       # mu wraps from 0 down to 1: one sample less
+            assert (sps - 1, N - 1) in cands
+        if center == N - 1:   # mu wraps from 1 up to 0: one sample more
+            assert (sps + 1, 0) in cands
+        if center == N // 2:
+            assert {j for j, _ in cands} == {sps}
+    assert seen == {sps - 1, sps, sps + 1}
+    assert candidate_slot(sps, N, N // 2, plan, sps + 2, N // 2) is None
+    one = G.launch_plan(8192, 41, 2, N * 41, n_cand=1)
+    assert candidates(sps, N, 5, one) == [(sps, 5)]
+
+
+def _trajectory(sync, iq, n_syms):
+    """(jump, subfilter) of every strobe of the plain loop, one symbol per
+    call, with the subfilter each symbol started from."""
+    st = sync.init_state(1)
+    x = torch.from_numpy(cplx.from_np(iq)[None])
+    N = sync.n_subfilt
+    sub = lambda mu: min(max(int(np.floor(np.float32(N) * mu)), 0), N - 1)
+    out = []
+    for _ in range(n_syms):
+        center = sub(float(st.mu[0]))
+        st, _ = gardner_cuda.symbol_sync_plain(sync, st, x, 1)
+        out.append((center, int(st.jump[0]), sub(float(st.mu[0]))))
+    return out
+
+
+@pytest.mark.parametrize("sps,sigma", [(2, 0.05), (2, 0.5), (4, 0.5)])
+def test_candidate_rule_picks_the_plain_loops_strobe(sps, sigma):
+    """On the plain loop's trajectory, wherever the rule calls a symbol a
+    hit, the candidate it picks is the loop's own (jump, subfilter); the
+    rule hits almost always, and a one-candidate plan only where the
+    strobe is the expected one."""
+    G = gardner_cuda
+    kw = dict(loop_bw=0.005, damping=0.707) if sps == 4 else {}
+    sync = SymbolSync(sps=sps, device="cpu", **kw)
+    _, iq = _tx_waveform(260, sps, 0.2, seed=21, frac_delay=0.3)
+    traj = _trajectory(sync, noisy(iq, 21, sigma), 240)
+    N = sync.n_subfilt
+    _, W, _ = G.window(sync)
+    for n_cand in (None, 1):
+        plan = G.launch_plan(4096, W, sync.midpoint, N * W, n_cand=n_cand)
+        hits = 0
+        for center, jump, isub in traj:
+            i = candidate_slot(sps, N, center, plan, jump, isub)
+            if i is not None:
+                assert candidates(sps, N, center, plan)[i] == (jump, isub)
+                hits += 1
+            elif n_cand == 1:
+                assert (jump, isub) != (sps, center)
+        if n_cand is None:
+            assert hits >= 0.97 * len(traj)
+        else:
+            assert hits < len(traj)

@@ -26,16 +26,12 @@ of the HBM bound) and a summary line. Needs one CUDA card.
 """
 
 import argparse
-import ctypes
 import json
 import re
-import subprocess
 import sys
 import time
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+from torch_variant_common import ROOT, apply_edits, bind, build, time_in_turns
 
 # name: [(old text, new text), ...]
 EDITS = {
@@ -69,42 +65,23 @@ def variant_source(text, threads, r, stages, edits):
                           f"constexpr int {name} = {val};", text)
         assert k == 1, name
     for edit in edits:
-        for old, new in EDITS[edit]:
-            assert old in text, (edit, old)
-            text = text.replace(old, new)
+        text = apply_edits(text, EDITS[edit])
     return text
 
 
-def build(names):
+def build_variants(names):
     from dvbs2rx_tpu_torch import _build
 
-    out = ROOT / "build" / "mf_variants"
-    out.mkdir(parents=True, exist_ok=True)
     src = (_build.SRC_DIR / "mf_segmented.cu").read_text()
-    jobs = {}
-    for name in names:
-        cu = out / f"{name}.cu"
-        cu.write_text(variant_source(src, *VARIANTS[name]))
-        so = out / f"{name}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-               str(cu)]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True))
-    libs, reports = {}, {}
-    for name, (so, p) in jobs.items():
-        log = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn, args in _build._SIGNATURES.items():
-            if fn.startswith("mf_segmented"):
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+    libs, logs = build(ROOT / "build" / "mf_variants",
+                       {name: variant_source(src, *VARIANTS[name])
+                        for name in names})
+    reports = {}
+    for name, lib in libs.items():
+        bind(lib, _build._SIGNATURES, "mf_segmented")
         reports[name] = {
             k.split("mf_segmented_kernel")[1][:14]: v
-            for k, v in _build.ptxas_report(log).items()}
+            for k, v in _build.ptxas_report(logs[name]).items()}
     return libs, reports
 
 
@@ -133,7 +110,7 @@ def main():
     from dvbs2rx_tpu_torch.ops import fir_cuda
 
     smi = chip_smoke.phase_device()
-    libs, reports = build(names)
+    libs, reports = build_variants(names)
     x, taps, base, sps, seg_len, off = chip_smoke._mf_args()
     C, n, _ = x.shape
     S, L = taps.shape[1:]
@@ -179,9 +156,10 @@ def main():
     for name in ("wrapper", "x.sum", "y.copy_"):
         rec[name] = {"variant": name, "ms": []}
     names = names + ["wrapper", "x.sum", "y.copy_"]
-    for _ in range(args.rounds):
-        for name in names + names[::-1]:
-            rec[name]["ms"].append(chip_smoke._time_ms(calls[name], 50))
+    times = time_in_turns({name: calls[name] for name in names},
+                          args.rounds, 50)
+    for name in names:
+        rec[name]["ms"] = times[name]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(200):
