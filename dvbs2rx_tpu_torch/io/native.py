@@ -1,13 +1,15 @@
-"""Loader of the repository's native host extension, for the TS stitch.
+"""Loader of the repository's native host extension, with numpy versions.
 
 The C extension (``native/dvbs2rx_native.c`` at the repository root) runs
-the host TS stitch loops. Build it with::
+the host TS stitch loops and the u8 <-> fc32 IQ conversions. Build it
+with::
 
     cd native && python setup.py build_ext --inplace
 
-The port calls only its flagged stitch entry points (``ts_stitch_flagged``
-and ``ts_stitch_flagged_batch``). Without the extension,
-``spec/bb_frame.py`` runs its numpy stitch, which gives the same bytes.
+The port calls its flagged stitch entry points (``ts_stitch_flagged`` and
+``ts_stitch_flagged_batch``) and the IQ conversions. Without the extension,
+``spec/bb_frame.py`` runs its numpy stitch, which gives the same bytes, and
+``u8_to_fc32``/``fc32_to_u8`` their numpy versions below.
 """
 
 import glob
@@ -51,6 +53,28 @@ def load():
 def has_ts_stitch_flagged() -> bool:
     ext = load()
     return bool(ext) and hasattr(ext, "ts_stitch_flagged")
+
+
+def u8_to_fc32(raw: np.ndarray) -> np.ndarray:
+    """Interleaved u8 IQ (offset 127.5) -> complex64."""
+    ext = load()
+    if ext:
+        out = ext.u8_to_fc32(np.asarray(raw, np.uint8).tobytes())
+        return np.frombuffer(out, np.float32).view(np.complex64)
+    x = (np.asarray(raw, np.uint8).astype(np.float32) - 127.5) / 127.5
+    return (x[0::2] + 1j * x[1::2]).astype(np.complex64)
+
+
+def fc32_to_u8(iq: np.ndarray, scale: float = 0.9) -> np.ndarray:
+    """complex64 -> interleaved u8 IQ: rint(x * scale * 127.5 + 127.5),
+    clipped to [0, 255]."""
+    ext = load()
+    x = np.empty(np.asarray(iq).size * 2, np.float32)
+    x[0::2] = np.real(iq)
+    x[1::2] = np.imag(iq)
+    if ext:
+        return np.frombuffer(ext.fc32_to_u8(x.tobytes(), scale), np.uint8)
+    return np.clip(np.rint(x * scale * 127.5 + 127.5), 0, 255).astype(np.uint8)
 
 
 def _as_buf(a):

@@ -26,6 +26,8 @@ import torch
 from .. import _build
 
 LAUNCHES = 0     # kernel launches; incremented only where the kernel runs
+LAUNCH_SHAPES = {}  # the same launches by (C, n, S, seg_len, L, sps,
+                    # off_bound)
 
 # kThreads, kR, kStages, kMaxTaps and the tap buckets of
 # csrc/mf_segmented.cu
@@ -140,6 +142,8 @@ def mf_segmented(samples, taps_seg, base_seg, sps, seg_len, off_bound):
     )
     _build.check(err, "mf_segmented_kernel")
     LAUNCHES += 1
+    key = (C, n, S, seg_len, L, int(sps), int(off_bound))
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
     return y
 
 

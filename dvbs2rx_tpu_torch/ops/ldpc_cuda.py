@@ -22,6 +22,8 @@ from .ldpc import M, LDPCDecoder, layer_edges, write_runs
 
 LAUNCHES_BY_CODE = {}   # kernel launches by code table name; incremented
                         # only where the kernel runs
+LAUNCH_SHAPES = {}      # the same launches by (code table name, B,
+                        # max_trials)
 
 
 def __getattr__(name):
@@ -142,4 +144,6 @@ class CudaLDPCDecoder:
         )
         _build.check(err, "ldpc_layered_kernel")
         LAUNCHES_BY_CODE[code.name] = LAUNCHES_BY_CODE.get(code.name, 0) + 1
+        key = (code.name, B, self.max_trials)
+        LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
         return hard, out, iters, conv != 0

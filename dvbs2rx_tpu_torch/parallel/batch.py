@@ -1,18 +1,26 @@
 """Per-lane PLFRAME processing over a (channel x frame) lane batch.
 
-Port of ``make_lane_fn`` from ``dvbs2rx_tpu/parallel/batch.py``. The JAX
-closure processes one frame and is vmapped over lanes; here the lane axis
-is written out. At the boundary it stays trailing, as the JAX vmap's
-``in_axes=-1`` / ``out_axes`` put it: headers (91, 2, B), payloads
-(Lp, 2, B), LLRs out (N, B). Inside, lanes lead, so the batched ``plsync``
-and ``demap`` functions apply directly. ``BatchedPipeline`` and the mesh
-helpers come later.
+Port of ``make_lane_fn`` and ``BatchedPipeline`` from
+``dvbs2rx_tpu/parallel/batch.py``. The JAX closure processes one frame and
+is vmapped over lanes; here the lane axis is written out. At the boundary
+it stays trailing, as the JAX vmap's ``in_axes=-1`` / ``out_axes`` put it:
+headers (91, 2, B), payloads (Lp, 2, B), LLRs out (N, B). Inside, lanes
+lead, so the batched ``plsync`` and ``demap`` functions apply directly.
+The mesh helpers (``make_channel_mesh``, ``shard_channels`` and
+``BatchedPipeline``'s ``mesh=``) come with the multi-device slice.
 """
 
+import numpy as np
 import torch
 
 from ..ops import cplx, plsync
-from ..ops.demap import demap, estimate_snr_generic, estimate_snr_qpsk
+from ..ops.demap import (
+    demap,
+    estimate_snr_generic,
+    estimate_snr_qpsk,
+    quantize_llrs,
+)
+from ..rx.receiver import FECStage, RxConfig
 
 
 def make_lane_fn(cfg, descr):
@@ -70,3 +78,88 @@ def make_lane_fn(cfg, descr):
                 "llrs": llr.t(), "xfec": xfec}
 
     return lane
+
+
+class BatchedPipeline:
+    """Steady-state locked pipeline over a (channel x frame) lane batch.
+
+    One ``step`` call takes frame-aligned symbol groups for each channel and
+    produces decoded BBFRAME bytes plus aggregated statistics: the lane
+    function over all C x F lanes, ``quantize_llrs``, then the lane-major
+    FEC stage (one LDPC launch of B = C x F frames on the card).
+    Acquisition and TS stitching stay on the host. On the card unless
+    ``device="cpu"``.
+    """
+
+    def __init__(self, cfg: RxConfig, n_channels: int, frames_per_step: int,
+                 device=None):
+        self.cfg = cfg
+        self.n_channels = n_channels
+        self.frames_per_step = frames_per_step
+        self.fec = FECStage(cfg, device)
+        self.device = self.fec.device
+        self.frame_len = self.fec.frame_len
+        self.payload_len = self.fec.payload_len
+        self._lane = make_lane_fn(cfg, self.fec.descr)
+
+    def step(self, headers_ext, payloads, coarse_corrected):
+        """headers_ext (91, 2, C, F+1), payloads (payload_len, 2, C, F)
+        float32 (tensors on the pipeline's device, or numpy arrays),
+        coarse_corrected a bool for every lane. Lane b = c*F + f (minor
+        axis); frame b's next header is entry f+1 of its channel's header
+        window.
+
+        Returns (kbytes (C, F, kbch/8) uint8 BB-scrambled, n0 (C*F,) float32,
+        stats {"bch_errors", "metric_min", "ldpc_iters"} 0-dim tensors)."""
+        C, F = self.n_channels, self.frames_per_step
+        B = C * F
+        dev = self.device
+        headers_ext = torch.as_tensor(headers_ext, device=dev)
+        payloads = torch.as_tensor(payloads, device=dev)
+        hdr = headers_ext[..., :F].reshape(91, 2, B)
+        nxt = headers_ext[..., 1:].reshape(91, 2, B)
+        pay = payloads.reshape(self.payload_len, 2, B)
+        if isinstance(coarse_corrected, torch.Tensor):
+            cc = coarse_corrected.to(dev, torch.bool).expand(B)
+        else:       # a fill, not a host->device copy (which would sync)
+            cc = torch.full((B,), bool(coarse_corrected), device=dev)
+        n0_ov = torch.full((B,), -1.0, device=dev)
+        out = self._lane(hdr, nxt, pay, cc, n0_ov)
+        llrsT = quantize_llrs(out["llrs"])                       # (N, B)
+        kbytes, n_corr, iters, _ok, _hard = self.fec.lane_major(llrsT)
+        stats = {
+            "bch_errors": (n_corr < 0).sum(),
+            "metric_min": out["metric"].min(),
+            "ldpc_iters": iters,
+        }
+        return kbytes.reshape(C, F, -1), out["n0"], stats
+
+    def frame_inputs_from_symbols(self, symbols):
+        """Host helper: frame-aligned symbol stream (C, n_syms) complex ->
+        lane-major numpy (headers_ext (91, 2, C, F+1), payloads
+        (payload_len, 2, C, F)) float32.
+
+        Assumes symbol index 0 is a SOF start (steady-state locked). The
+        lane-axis-minor layout is built on the host so the device step never
+        pays a relayout.
+        """
+        h, p = self.channel_major_inputs(symbols)
+        headers_ext = np.ascontiguousarray(h.transpose(2, 3, 0, 1))
+        payloads = np.ascontiguousarray(p.transpose(2, 3, 0, 1))
+        return headers_ext, payloads
+
+    def channel_major_inputs(self, symbols):
+        """(C, n_syms) -> channel-major numpy (C, F+1, 91, 2), (C, F, Lp, 2)
+        float32. Header indices are clipped into the stream (the first
+        header's extension symbol, index -1, reads symbol 0)."""
+        F = self.frames_per_step
+        L = self.frame_len
+        need = (F + 1) * L + 91
+        assert symbols.shape[1] >= need - L, "not enough symbols"
+        idx_h = np.arange(F + 1)[:, None] * L + np.arange(-1, 90)[None, :]
+        idx_h = np.clip(idx_h, 0, symbols.shape[1] - 1)
+        headers_ext = cplx.from_np(symbols[:, idx_h])
+        idx_p = (90 + np.arange(F)[:, None] * L
+                 + np.arange(self.payload_len)[None, :])
+        payloads = cplx.from_np(symbols[:, idx_p])
+        return headers_ext, payloads

@@ -142,6 +142,9 @@ MODCOD_NUMBERS = {
     (const.lower() + rate): num for num, (const, rate) in DVBS2_MODCODS.items()
 }
 
+ROLLOFFS = (0.35, 0.25, 0.2, 0.15, 0.1, 0.05)  # last three are S2X only
+
+
 @dataclass(frozen=True)
 class FECInfo:
     framesize: str   # "normal" | "short" | "medium"

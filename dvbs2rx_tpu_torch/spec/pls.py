@@ -24,6 +24,10 @@ class PLSInfo:
     payload_len: int    # data + pilots
     xfecframe_len: int  # data symbols only
 
+    @property
+    def constellation(self):
+        return {2: "QPSK", 3: "8PSK", 4: "16APSK", 5: "32APSK"}.get(self.n_mod, "DUMMY")
+
 
 def parse_pls(plsc: int) -> PLSInfo:
     modcod = plsc >> 2
@@ -68,3 +72,11 @@ def parse_pls(plsc: int) -> PLSInfo:
 
 def make_pls(modcod: int, short_fecframe: bool, has_pilots: bool) -> int:
     return ((modcod & 0x1F) << 2) | (int(bool(short_fecframe)) << 1) | int(bool(has_pilots))
+
+
+def pls_filter(*pls_values):
+    """Build the 128-entry boolean PLS filter (True = frame accepted)."""
+    enabled = [False] * 128
+    for v in pls_values:
+        enabled[int(v)] = True
+    return enabled

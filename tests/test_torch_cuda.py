@@ -61,8 +61,11 @@ def test_mf_kernel_matches_plain(card, C, S, seg_len, L, off):
     base = torch.from_numpy(
         rng.integers(-3, off + 4, (C, S)).astype(np.int32)).to(card)
     before = fir_cuda.LAUNCHES
+    key = (C, n, S, seg_len, L, 2, off)
+    shape_before = fir_cuda.LAUNCH_SHAPES.get(key, 0)
     got = fir_cuda.mf_segmented(x, taps, base, 2, seg_len, off)
     assert fir_cuda.LAUNCHES == before + 1
+    assert fir_cuda.LAUNCH_SHAPES[key] == shape_before + 1
     want = fir_cuda.mf_segmented_plain(x, taps, base, 2, seg_len, off)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
@@ -169,8 +172,10 @@ def test_ldpc_kernel_matches_plain(card, table, B, kind, trials):
     llrs = _llrs(code, B, kind, seed=B)
     xT = torch.from_numpy(np.ascontiguousarray(llrs.T)).to(card)
     before = ldpc_cuda.LAUNCHES
+    shape_before = ldpc_cuda.LAUNCH_SHAPES.get((table, B, trials), 0)
     got = ldpc_cuda.CudaLDPCDecoder(code, trials, card).decode_lane_major(xT)
     assert ldpc_cuda.LAUNCHES == before + 1
+    assert ldpc_cuda.LAUNCH_SHAPES[(table, B, trials)] == shape_before + 1
     want = LDPCDecoder(code, trials, card).decode_lane_major(xT)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
@@ -831,3 +836,99 @@ def test_gardner_batched_acm_on_card_matches_cpu(card):
         assert ts_c[ch].size >= 188 * 10
     assert launches["cpu"] == 0
     assert 0 < launches["cuda"] <= iq.shape[1] // (2 * 4096) + 3
+
+
+def _pipeline_symbols(cfg, C, F, std, seed):
+    tx = Transmitter(TxConfig(modcod=cfg.modcod, frame_size=cfg.frame_size,
+                              pilots=cfg.pilots))
+    L = cfg.pls_info.plframe_len
+    rng = np.random.default_rng(seed)
+    n_pkts = ((F + 2) * tx.df_bytes) // 188 + 2
+    pkts = rng.integers(0, 256, (n_pkts, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    syms = tx.modulate_ts(pkts.reshape(-1))[: (F + 1) * L + 91]
+    noise = rng.normal(0, std, (C, syms.size, 2))
+    return (syms[None] + noise[..., 0] + 1j * noise[..., 1]).astype(
+        np.complex64)
+
+
+@pytest.mark.parametrize("modcod,pilots,std", [("qpsk1/2", False, 0.45),
+                                               ("8psk3/5", True, 0.2)])
+def test_batched_pipeline_on_card_matches_cpu(card, modcod, pilots, std):
+    """``BatchedPipeline`` on the card against the CPU: kbytes,
+    ``bch_errors`` and ``ldpc_iters`` equal, n0 and ``metric_min`` within
+    rtol 1e-4; one LDPC launch per step."""
+    from dvbs2rx_tpu_torch.parallel.batch import BatchedPipeline
+
+    cfg = RxConfig(modcod=modcod, frame_size="short", pilots=pilots)
+    C, F = 8, 2
+    syms = _pipeline_symbols(cfg, C, F, std, seed=12)
+    out = {}
+    for dev in ("cpu", card):
+        pipe = BatchedPipeline(cfg, C, F, device=dev)
+        h, p = pipe.frame_inputs_from_symbols(syms)
+        before = ldpc_cuda.LAUNCHES
+        kb, n0, st = pipe.step(h, p, True)
+        out[str(dev)] = (kb.cpu().numpy(), n0.cpu().numpy(),
+                         {k: v.item() for k, v in st.items()},
+                         ldpc_cuda.LAUNCHES - before)
+    (kb_c, n0_c, st_c, n_c), (kb_g, n0_g, st_g, n_g) = out.values()
+    np.testing.assert_array_equal(kb_g, kb_c)
+    assert st_g["bch_errors"] == st_c["bch_errors"] == 0
+    assert st_g["ldpc_iters"] == st_c["ldpc_iters"]
+    np.testing.assert_allclose(n0_g, n0_c, rtol=1e-4)
+    np.testing.assert_allclose(st_g["metric_min"], st_c["metric_min"],
+                               rtol=1e-4)
+    assert (n_c, n_g) == (0, 1)
+
+
+@pytest.mark.parametrize("frame_size,rate", [("normal", "1/2"),
+                                             ("short", "3/5")])
+def test_device_encoder_on_card_matches_host_with_tf32_on(card, frame_size,
+                                                          rate):
+    from dvbs2rx_tpu_torch.ops.encode import get_device_encoder
+    from dvbs2rx_tpu_torch.spec.fec_params import get_fec_info
+
+    fec = get_fec_info(frame_size, rate)
+    code = get_code(fec.ldpc_table)
+    rng = np.random.default_rng(5)
+    msgs = rng.integers(0, 2, (128, fec.kbch)).astype(np.uint8)
+    msgs[0] = 1
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cw = get_device_encoder(frame_size, rate, device=card)(
+            torch.from_numpy(msgs.T.copy()).to(card)).cpu().numpy().T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    bch = np.stack([np.concatenate([m, np.unpackbits(
+        bch_spec.bch_encode_bytes(np.packbits(m), frame_size, fec.t))])
+        for m in msgs])
+    np.testing.assert_array_equal(cw, code.encode(bch))
+
+
+def test_rx_app_loopback_on_the_card(card, tmp_path, capsys):
+    """Tx app -> rx app with the default ``--device cuda``: a consecutive
+    bit-exact TS, 0 BCH errors, both kernels of the CCM stream launched."""
+    import json
+
+    from chip_smoke import _assert_consecutive
+    from dvbs2rx_tpu_torch.apps import dvbs2_rx, dvbs2_tx
+
+    rng = np.random.default_rng(14)
+    pkts = rng.integers(0, 256, (80, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    pkts.tofile(tmp_path / "in.ts")
+    short = ["--modcod", "qpsk1/2", "--frame-size", "short"]
+    assert dvbs2_tx.main(["--in-file", str(tmp_path / "in.ts"), "--out-file",
+                          str(tmp_path / "iq"), *short, "--snr", "12"]) == 0
+    capsys.readouterr()
+    before = dvbs2_rx.kernel_launches()
+    assert dvbs2_rx.main(["--in-file", str(tmp_path / "iq"), "--out-file",
+                          str(tmp_path / "out.ts"), *short]) == 0
+    after = dvbs2_rx.kernel_launches()
+    stats = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
+    assert stats["locked"] and stats["bch_frame_errors"] == 0
+    _assert_consecutive(np.fromfile(tmp_path / "out.ts", np.uint8), pkts, 55)
+    assert after["mf_segmented"] > before["mf_segmented"]
+    assert after["ldpc_layered"] > before["ldpc_layered"]

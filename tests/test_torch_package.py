@@ -54,6 +54,9 @@ def test_every_module_imports_without_jax():
     assert "dvbs2rx_tpu_torch.rx.acm_batch" in mods
     assert "dvbs2rx_tpu_torch.ops.gardner_cuda" in mods
     assert "dvbs2rx_tpu_torch.ops.resample" in mods
+    for m in ("apps.dvbs2_rx", "apps.dvbs2_tx", "apps.dvbs2_rec",
+              "ops.encode", "io.iq", "utils.params"):
+        assert "dvbs2rx_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

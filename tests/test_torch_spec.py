@@ -1,5 +1,5 @@
-"""The port's own ``spec``, ``io.native`` and ``tx`` copies against their
-originals in the JAX package.
+"""The port's own ``spec``, ``io`` (``native``, ``iq``), ``utils.params``
+and ``tx`` copies against their originals in the JAX package.
 
 Every comparison is exact (integer tables, numpy float arithmetic in the
 same order). Inputs come from numpy seeds; nothing here compiles JAX: the
@@ -7,11 +7,14 @@ originals compared are the JAX package's numpy-only modules.
 """
 
 import dataclasses
+import os
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from dvbs2rx_tpu.io import iq as jiq
 from dvbs2rx_tpu.io import native as jnative
 from dvbs2rx_tpu.spec import bb_frame as jbb
 from dvbs2rx_tpu.spec import bch_spec as jbch
@@ -27,8 +30,9 @@ from dvbs2rx_tpu.spec import rrc as jrrc
 from dvbs2rx_tpu.spec import scramblers as jscr
 from dvbs2rx_tpu.tx import transmitter as jtx
 from dvbs2rx_tpu.tx import vcm as jvcm
+from dvbs2rx_tpu.utils import params as jparams
 
-from dvbs2rx_tpu_torch.io import native
+from dvbs2rx_tpu_torch.io import iq, native
 from dvbs2rx_tpu_torch.ops.crc8_dev import packet_validity
 from dvbs2rx_tpu_torch.spec import (
     bb_frame,
@@ -45,6 +49,7 @@ from dvbs2rx_tpu_torch.spec import (
     scramblers,
 )
 from dvbs2rx_tpu_torch.tx import transmitter, vcm
+from dvbs2rx_tpu_torch.utils import params
 
 TABLES = jldpc.available_tables()
 
@@ -272,3 +277,177 @@ def test_batch_ts_stitcher_gives_the_same_ts(monkeypatch, use_native):
     st = ours.stats
     assert st.packet_cnt > 0 and st.error_cnt >= 1
     assert st.bbframe_drop_cnt == 1 and st.bbframe_gap_cnt >= 1
+
+
+# ---- io.iq and the native IQ conversions ----
+
+def _iq_samples(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 0.5, (n, 2)).astype(np.float32)
+    x[:4] = [[1.5, -1.5], [0.0, 0.0], [1.0 / 0.9, -1.0 / 0.9], [2.0, -2.0]]
+    return (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_iq_conversions_match(monkeypatch, use_native):
+    if not use_native:
+        monkeypatch.setattr(native, "_ext", False)
+        monkeypatch.setattr(jnative, "_ext", False)
+    x = _iq_samples(1001, seed=5)
+    for scale in (0.9, 0.25):
+        u8 = iq.fc32_to_u8(x, scale)
+        assert u8.dtype == np.uint8 and u8.size == 2 * x.size
+        np.testing.assert_array_equal(u8, jiq.fc32_to_u8(x, scale))
+        np.testing.assert_array_equal(u8, native.fc32_to_u8(x, scale))
+    raw = np.random.default_rng(6).integers(0, 256, 2002, dtype=np.uint8)
+    back = iq.u8_to_fc32(raw)
+    assert back.dtype == np.complex64 and back.size == 1001
+    np.testing.assert_array_equal(back, jiq.u8_to_fc32(raw))
+    # round trip within half a quantisation step per rail, inside full scale
+    y = x[(np.abs(x.real) < 1) & (np.abs(x.imag) < 1)]
+    rt = iq.u8_to_fc32(iq.fc32_to_u8(y, 0.9))
+    for part in (np.real, np.imag):
+        np.testing.assert_allclose(part(rt), part(y) * 0.9, rtol=0,
+                                   atol=0.5 / 127.5 + 1e-6)
+
+
+@pytest.mark.parametrize("fmt", ["fc32", "u8"])
+def test_read_and_write_iq_match(tmp_path, fmt):
+    x = _iq_samples(777, seed=7)
+    a, b = tmp_path / "a", tmp_path / "b"
+    iq.write_iq(str(a), x, fmt)
+    jiq.write_iq(str(b), x, fmt)
+    assert a.read_bytes() == b.read_bytes()
+    np.testing.assert_array_equal(iq.read_iq(str(a), fmt),
+                                  jiq.read_iq(str(b), fmt))
+    fd = os.open(str(a), os.O_RDONLY)
+    try:
+        np.testing.assert_array_equal(iq.read_iq(fd, fmt),
+                                      jiq.read_iq(str(b), fmt))
+    finally:
+        os.close(fd)
+    with pytest.raises(ValueError, match="unknown IQ format"):
+        iq.write_iq(str(a), x, "s16")
+    with pytest.raises(ValueError, match="unknown IQ format"):
+        iq.read_iq(str(a), "s16")
+
+
+def _pipe_chunks(it_fn, payload, pieces):
+    """Chunks ``it_fn(read_fd)`` yields while a thread writes ``payload``
+    into a pipe in ``pieces`` (byte counts) and closes it."""
+    r, w = os.pipe()
+
+    def writer():
+        pos = 0
+        for n in pieces:
+            os.write(w, payload[pos: pos + n])
+            pos += n
+        os.write(w, payload[pos:])
+        os.close(w)
+
+    t = threading.Thread(target=writer)
+    t.start()
+    try:
+        chunks = list(it_fn(r))
+    finally:
+        t.join(timeout=30)
+        os.close(r)
+    assert not t.is_alive()
+    return chunks
+
+
+@pytest.mark.parametrize("fmt", ["fc32", "u8"])
+def test_iter_iq_over_a_pipe_carries_partial_samples(fmt):
+    """Odd-sized writes leave reads that end inside a sample (8 bytes for
+    fc32, 2 for u8): the partial sample is carried into the next read, and
+    the samples are those of the JAX ``iter_iq`` and of the whole stream."""
+    x = _iq_samples(3001, seed=8)
+    payload = (x.tobytes() if fmt == "fc32"
+               else iq.fc32_to_u8(x).tobytes())
+    pieces = [3, 5, 1, 7, 13, 2, 11, 1001, 9, 333]
+    ours = _pipe_chunks(lambda fd: iq.iter_iq(fd, fmt, chunk_samples=37),
+                        payload, pieces)
+    ref = _pipe_chunks(lambda fd: jiq.iter_iq(fd, fmt, chunk_samples=37),
+                       payload, pieces)
+    assert len(ours) > len(pieces)
+    whole = (x if fmt == "fc32"
+             else iq.u8_to_fc32(np.frombuffer(payload, np.uint8)))
+    np.testing.assert_array_equal(np.concatenate(ours), whole)
+    np.testing.assert_array_equal(np.concatenate(ours), np.concatenate(ref))
+
+
+def test_iter_iq_from_a_file_matches(tmp_path):
+    x = _iq_samples(5000, seed=9)
+    path = tmp_path / "x.fc32"
+    x.tofile(path)
+    with open(path, "ab") as f:
+        f.write(b"\x01\x02\x03")          # a trailing partial sample
+    a = list(iq.iter_iq(str(path), "fc32", chunk_samples=999))
+    b = list(jiq.iter_iq(str(path), "fc32", chunk_samples=999))
+    assert [c.size for c in a] == [c.size for c in b]
+    np.testing.assert_array_equal(np.concatenate(a), x)
+
+
+# ---- spec.pls.pls_filter and utils.params ----
+
+def test_pls_filter_and_constellation_match():
+    assert pls.pls_filter() == jpls.pls_filter()
+    assert pls.pls_filter(0, 17, 49, 127) == jpls.pls_filter(0, 17, 49, 127)
+    for v in range(128):
+        assert pls.parse_pls(v).constellation == \
+            jpls.parse_pls(v).constellation
+    assert fec_params.ROLLOFFS == jfec.ROLLOFFS
+
+
+def _outcome(fn, *a, **kw):
+    """A call's result, or its exception's type and message."""
+    try:
+        return "ok", fn(*a, **kw)
+    except (ValueError, KeyError) as e:
+        return type(e).__name__, str(e)
+
+
+def _same_fec(a, b):
+    if a[0] != "ok" or b[0] != "ok":
+        return a == b
+    const_a, rate_a, fec_a, pls_a = a[1]
+    const_b, rate_b, fec_b, pls_b = b[1]
+    return ((const_a, rate_a, pls_a) == (const_b, rate_b, pls_b)
+            and dataclasses.asdict(fec_a) == dataclasses.asdict(fec_b))
+
+
+@pytest.mark.parametrize("frame_size", ["normal", "short", "medium", "tiny"])
+def test_params_validate_and_translate_match(frame_size):
+    names = sorted(fec_params.MODCOD_NUMBERS) + ["qpsk9/9", "QPSK1/2"]
+    for modcod in names:
+        for standard in ("DVB-S2", "DVB-S2X", "DVB-T3"):
+            for rolloff in (0.35, 0.2, 0.15, 0.3):
+                for sps in (2, 4, 1, 2.5):
+                    kw = dict(standard=standard, frame_size=frame_size,
+                              modcod=modcod, rolloff=rolloff, sps=sps)
+                    assert _outcome(params.validate, **kw) == \
+                        _outcome(jparams.validate, **kw), kw
+        for pilots in (False, True):
+            assert _same_fec(
+                _outcome(params.translate, modcod, frame_size, pilots),
+                _outcome(jparams.translate, modcod, frame_size, pilots))
+
+
+def test_params_pls_helpers_match():
+    names = list(fec_params.MODCOD_NUMBERS) + list(range(32))
+    for modcod in names:
+        for short in (False, True):
+            for pilots in (False, True):
+                assert params.dvbs2_pls(modcod, short, pilots) == \
+                    jparams.dvbs2_pls(modcod, short, pilots)
+                assert params.pl_info(modcod, short, pilots) == \
+                    jparams.pl_info(modcod, short, pilots)
+    for vals in ((), (0,), (0, 63, 64, 127), tuple(range(0, 128, 3))):
+        assert params.pls_filter(*vals) == jparams.pls_filter(*vals)
+    for bad in (128, -1):
+        assert _outcome(params.pls_filter, bad) == \
+            _outcome(jparams.pls_filter, bad)
+        with pytest.raises(ValueError, match="within"):
+            params.pls_filter(bad)
+    assert _outcome(params.dvbs2_pls, "qpsk9/9", False, False) == \
+        _outcome(jparams.dvbs2_pls, "qpsk9/9", False, False)
