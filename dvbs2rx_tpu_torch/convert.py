@@ -9,6 +9,11 @@ leading channel axis.
 - ``state_from_numpy`` / ``state_to_numpy`` map that dict to the port's
   state tensors and back, dtype for dtype (bool stays bool), so a test can
   prime the JAX receiver and step both receivers from the same state.
+- ``sharded_state_from_numpy`` / ``sharded_state_to_numpy`` do the same
+  for a receiver sharded over a channel mesh (``StreamReceiver(mesh=)``):
+  the port's sharded state is one state dict per device, each holding that
+  shard's channels, where JAX keeps one global pytree with a sharding. So a
+  JAX global state, read out as numpy, primes either form.
 - ``vcm_state_from_numpy`` / ``vcm_state_to_numpy`` do the same for the
   ``VCMStreamReceiver`` state (``dvbs2rx_tpu/rx/vcm_stream.py:256-294``),
   whose symbol ring and FEC queues the port keeps transposed: the ring
@@ -54,6 +59,22 @@ def state_from_numpy(state_np: dict, device) -> dict:
 def state_to_numpy(state: dict) -> dict:
     """Inverse of ``state_from_numpy``."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def sharded_state_from_numpy(state_np: dict, mesh) -> list:
+    """Global host state dict (every leaf channel-led) -> one state dict
+    per device of the channel mesh ``mesh``, shard i holding channels
+    [i C/D, (i+1) C/D)."""
+    D = mesh.shape["ch"]
+    parts = {k: np.split(np.asarray(v), D) for k, v in state_np.items()}
+    return [state_from_numpy({k: p[i] for k, p in parts.items()}, dev)
+            for i, dev in enumerate(mesh.devices)]
+
+
+def sharded_state_to_numpy(states: list) -> dict:
+    """Inverse of ``sharded_state_from_numpy``: the global host dict."""
+    parts = [state_to_numpy(st) for st in states]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 # VCM state leaves whose port layout swaps the JAX layout's last two axes

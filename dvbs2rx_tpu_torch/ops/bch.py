@@ -13,6 +13,15 @@ normal frames), so it is built on the first frame that needs correcting.
 
 A frame with more than t errors returns -1 corrections and its bits
 unchanged, like the reference.
+
+Two forms of each entry point. By default a batch whose frames are all
+clean returns at once, which reads one flag back to the host. With
+``sync_free=True`` the correction always runs: its masks leave a clean
+frame's bits untouched and give it 0 corrections, the device-side select
+of the JAX module's ``lax.cond`` (``dvbs2rx_tpu/ops/bch.py:189,221``). That
+form never waits on the card, so a CUDA-graph capture can hold it and the
+shards of a mesh queue without waiting on each other; it pays for the
+Chien product of every batch.
 """
 
 import numpy as np
@@ -39,6 +48,18 @@ def chien_bit_matrix(exp_np, m, t, nbch, ordn):
             (t + 1) * m, len(pe) * m
         )
     return T
+
+
+def _xor_reduce(x):
+    """XOR of x (B, W) along its last axis, as a tree of halves over x
+    zero-padded to a power of two: the running XOR's value in
+    1 + ceil(log2 W) launches instead of W - 1."""
+    w = 1 << (x.shape[1] - 1).bit_length()
+    x = torch.nn.functional.pad(x, (0, w - x.shape[1]))
+    while w > 1:
+        w //= 2
+        x = x[:, :w] ^ x[:, w:]
+    return x[:, 0]
 
 
 class BCHDecoder:
@@ -83,21 +104,19 @@ class BCHDecoder:
         n_steps = 2 * self.t
         W = 2 * self.t + 1
         dev = S.device
-        C = torch.zeros((B, W), dtype=torch.int64, device=dev)
-        C[:, 0] = 1
+        idx = torch.arange(W, device=dev)
+        # C(x) = B(x) = 1: built by a comparison, not a write of a host
+        # scalar (a host-to-device copy, which a CUDA-graph capture refuses)
+        C = (idx == 0).to(torch.int64).expand(B, W).clone()
         Bp = C.clone()
         L = torch.zeros((B,), dtype=torch.int64, device=dev)
         m = torch.ones((B,), dtype=torch.int64, device=dev)
         b = torch.ones((B,), dtype=torch.int64, device=dev)
-        idx = torch.arange(W, device=dev)
         for n in range(n_steps):
             s_idx = n - idx
             valid = (s_idx >= 0) & (s_idx < n_steps)
             s_val = torch.where(valid, S[:, s_idx.clamp(0, n_steps - 1)], 0)
-            prods = self._gf_mul(C, s_val)
-            d = prods[:, 0]
-            for j in range(1, W):
-                d = d ^ prods[:, j]
+            d = _xor_reduce(self._gf_mul(C, s_val))
             coef = self._gf_mul(d, self._gf_inv(b))
             roll_idx = idx[None, :] - m[:, None]
             shifted = torch.where(
@@ -140,25 +159,21 @@ class BCHDecoder:
         n_corr = torch.where(clean, 0, torch.where(fail, -1, n_roots))
         return apply_mask, n_corr.to(torch.int32)
 
-    def decode_lane_major(self, bits_t):
+    def decode_lane_major(self, bits_t, sync_free: bool = False):
         """bits_t (nbch, B) uint8 -> (corrected_t (nbch, B), n_corr (B,)).
 
         The all-frames-clean case (the common one after LDPC at operating
         SNR) returns at once; telling it apart reads one flag back to the
-        host."""
-        B = bits_t.shape[1]
-        S = self._syndromes(bits_t.t())
-        if not bool((S == 0).all()):
-            mask, n_corr = self._correct(S)
-            return bits_t ^ mask.t().to(bits_t.dtype), n_corr
-        return bits_t, torch.zeros((B,), dtype=torch.int32,
-                                   device=bits_t.device)
+        host. ``sync_free=True`` always corrects and reads nothing back."""
+        corrected, n_corr = self(bits_t.t(), sync_free)
+        return corrected.t(), n_corr
 
-    def __call__(self, bits):
-        """bits (B, nbch) uint8 -> (corrected bits, n_corrections (B,))."""
+    def __call__(self, bits, sync_free: bool = False):
+        """bits (B, nbch) uint8 -> (corrected bits, n_corrections (B,)).
+        ``sync_free`` as in ``decode_lane_major``."""
         B = bits.shape[0]
         S = self._syndromes(bits)
-        if not bool((S == 0).all()):
+        if sync_free or not bool((S == 0).all()):
             mask, n_corr = self._correct(S)
             return bits ^ mask.to(bits.dtype), n_corr
         return bits, torch.zeros((B,), dtype=torch.int32, device=bits.device)

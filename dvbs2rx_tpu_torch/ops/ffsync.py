@@ -40,6 +40,17 @@ def _window_offsets(n):
 
 
 @functools.lru_cache(maxsize=8)
+def _om_signs(n):
+    """(-1)^k for k < n, and the same with index 0 masked (the odd
+    branch's), as float32 tables (constants of the step go through
+    ``device_table``: no host-to-device copy inside it)."""
+    sign = np.where(np.arange(n) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    odd = sign.copy()
+    odd[0] = 0.0
+    return sign, odd
+
+
+@functools.lru_cache(maxsize=8)
 def _window_centres(n, sps):
     return ((_window_offsets(n) + WIN_SAMP / 2) / sps).astype(np.float32)
 
@@ -120,11 +131,8 @@ class FeedForwardSync:
         xp = torch.nn.functional.pad(x, (6, 5))
         o = (xp.unfold(-1, hb.shape[0], 1) * hb).sum(-1)  # (2, ..., n)
         sq_odd = o[0] * o[0] + o[1] * o[1]
-        sign = torch.where(
-            torch.arange(n, device=samples.device) % 2 == 0, 1.0, -1.0
-        ).to(torch.float32)
-        sign_odd = sign.clone()
-        sign_odd[0] = 0.0
+        sign, sign_odd = (device_table(t, samples.device)
+                          for t in _om_signs(n))
         return sq_even * sign, sq_odd * sign_odd
 
     def _estimate_tau(self, samples):

@@ -6,8 +6,12 @@ is vmapped over lanes; here the lane axis is written out. At the boundary
 it stays trailing, as the JAX vmap's ``in_axes=-1`` / ``out_axes`` put it:
 headers (91, 2, B), payloads (Lp, 2, B), LLRs out (N, B). Inside, lanes
 lead, so the batched ``plsync`` and ``demap`` functions apply directly.
-The mesh helpers (``make_channel_mesh``, ``shard_channels`` and
-``BatchedPipeline``'s ``mesh=``) come with the multi-device slice.
+
+``make_channel_mesh`` and ``shard_channels`` are the JAX module's mesh
+helpers over ``parallel.mesh.Mesh``: a channel mesh is a list of devices
+with the axis ``"ch"``, and a sharded array is a list of per-device
+chunks. ``BatchedPipeline(mesh=)`` runs one pipeline of C/D channels per
+device.
 """
 
 import numpy as np
@@ -21,6 +25,28 @@ from ..ops.demap import (
     quantize_llrs,
 )
 from ..rx.receiver import FECStage, RxConfig
+from .mesh import Mesh, all_cards
+
+
+# how the shards' whole-step statistics combine under a mesh
+PIPELINE_REDUCE = {"bch_errors": "sum", "metric_min": "min",
+                   "ldpc_iters": "max"}
+
+
+def make_channel_mesh(devices=None) -> Mesh:
+    """A channel mesh (axis ``"ch"``) over ``devices``; ``None`` means every
+    visible CUDA device and raises when there is none. Devices may repeat
+    (``["cpu"] * D``, or one card D times)."""
+    return Mesh(all_cards() if devices is None else devices, "ch")
+
+
+def shard_channels(mesh: Mesh, arr, axis: int = -2):
+    """Split an array along its channel axis (default: second-to-last, the
+    lane-major convention) into one chunk per device of ``mesh``, each on
+    its device. A list is taken as already split."""
+    if isinstance(arr, (list, tuple)):
+        return mesh.split(arr)
+    return mesh.split(arr, axis % arr.ndim)
 
 
 def make_lane_fn(cfg, descr):
@@ -89,13 +115,35 @@ class BatchedPipeline:
     FEC stage (one LDPC launch of B = C x F frames on the card).
     Acquisition and TS stitching stay on the host. On the card unless
     ``device="cpu"``.
+
+    With ``mesh`` (a channel mesh, C divisible by D) the pipeline holds one
+    local pipeline of C/D channels per device; ``step`` splits its inputs
+    along channels (or takes ``shard_channels``' lists), runs each shard on
+    its device with the BCH form that reads nothing back, and returns
+    outputs equal to the unsharded pipeline's: kbytes and n0 concatenated
+    along channels on the first device, ``bch_errors`` summed,
+    ``metric_min`` the minimum and ``ldpc_iters`` the maximum over the
+    shards, as XLA reduces them under the JAX mesh.
     """
 
     def __init__(self, cfg: RxConfig, n_channels: int, frames_per_step: int,
-                 device=None):
+                 device=None, mesh: Mesh = None):
         self.cfg = cfg
         self.n_channels = n_channels
         self.frames_per_step = frames_per_step
+        self.mesh = mesh
+        self._shards = None
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both")
+            D = mesh.shape["ch"]
+            if n_channels % D:
+                raise ValueError(f"n_channels={n_channels} not divisible by "
+                                 f"mesh size {D}")
+            device = mesh.devices[0]
+            self._shards = [
+                BatchedPipeline(cfg, n_channels // D, frames_per_step,
+                                device=d) for d in mesh.devices]
         self.fec = FECStage(cfg, device)
         self.device = self.fec.device
         self.frame_len = self.fec.frame_len
@@ -111,6 +159,19 @@ class BatchedPipeline:
 
         Returns (kbytes (C, F, kbch/8) uint8 BB-scrambled, n0 (C*F,) float32,
         stats {"bch_errors", "metric_min", "ldpc_iters"} 0-dim tensors)."""
+        if self.mesh is None:
+            return self._step(headers_ext, payloads, coarse_corrected, False)
+        mesh = self.mesh
+        outs = []
+        for loc, h, p in zip(self._shards, shard_channels(mesh, headers_ext),
+                             shard_channels(mesh, payloads)):
+            with Mesh.on(loc.device):
+                outs.append(loc._step(h, p, coarse_corrected, True))
+        return (mesh.gather([o[0] for o in outs]),
+                mesh.gather([o[1] for o in outs]),
+                mesh.merge([o[2] for o in outs], PIPELINE_REDUCE))
+
+    def _step(self, headers_ext, payloads, coarse_corrected, sync_free):
         C, F = self.n_channels, self.frames_per_step
         B = C * F
         dev = self.device
@@ -126,7 +187,8 @@ class BatchedPipeline:
         n0_ov = torch.full((B,), -1.0, device=dev)
         out = self._lane(hdr, nxt, pay, cc, n0_ov)
         llrsT = quantize_llrs(out["llrs"])                       # (N, B)
-        kbytes, n_corr, iters, _ok, _hard = self.fec.lane_major(llrsT)
+        kbytes, n_corr, iters, _ok, _hard = self.fec.lane_major(llrsT,
+                                                                sync_free)
         stats = {
             "bch_errors": (n_corr < 0).sum(),
             "metric_min": out["metric"].min(),

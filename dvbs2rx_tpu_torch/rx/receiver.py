@@ -304,7 +304,8 @@ class FECStage:
 
     ``lane_major(llrsT (N, B) int8)`` -> (kbytes (B, kbch/8) uint8, n_corr
     (B,) int32, iters int32, ok (B,) int32, hard_t (N, B) uint8). On a CUDA
-    tensor the LDPC decode of the default rule is the hand-written kernel.
+    tensor the LDPC decode of the default rule is the hand-written kernel;
+    ``sync_free=True`` takes the BCH form that reads nothing back.
     """
 
     def __init__(self, cfg: RxConfig, device=None):
@@ -316,17 +317,19 @@ class FECStage:
         self.ldpc, self.bch = tab.ldpc, tab.bch
         self.bb_scramble, self.descr = tab.bb_scramble, tab.descr
 
-    def lane_major(self, llrsT):
-        return fec_lane_major(self.ldpc, self.bch, self.cfg.fec, llrsT)
+    def lane_major(self, llrsT, sync_free: bool = False):
+        return fec_lane_major(self.ldpc, self.bch, self.cfg.fec, llrsT,
+                              sync_free)
 
 
-def fec_lane_major(ldpc, bch, fec: FECInfo, llrsT):
+def fec_lane_major(ldpc, bch, fec: FECInfo, llrsT, sync_free: bool = False):
     """LDPC -> BCH -> byte packing of one code (``Receiver.
     _fec_stage_lane_major_impl``): llrsT (N, B) int8 -> (kbytes (B, kbch/8)
     uint8, n_corr (B,) int32, iters int32, ok (B,) int32, hard_t (N, B)
-    uint8)."""
+    uint8). ``sync_free`` as in ``BCHDecoder.decode_lane_major``."""
     hard_t, _llrs_out, iters, ok = ldpc.decode_lane_major(llrsT)
-    corrected_t, n_corr = bch.decode_lane_major(hard_t[: fec.nbch])
+    corrected_t, n_corr = bch.decode_lane_major(hard_t[: fec.nbch],
+                                                sync_free)
     kbits_t = corrected_t[: fec.kbch].to(torch.int64)
     B = kbits_t.shape[1]
     w = device_table(_BYTE_W, kbits_t.device)

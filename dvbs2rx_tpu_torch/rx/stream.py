@@ -19,10 +19,20 @@ JAX jits and donates the step; PyTorch runs it eagerly. The step is
 functional: it returns a new state dict and never writes the tensors of
 the state it was given. The per-channel dynamic slices of the JAX step
 (``jax.lax.dynamic_slice``, which clamps its start into range) are one
-gather each with the same clamp. ``make_scan_step`` and the mesh path come
-later.
+gather each with the same clamp.
 
-Host synchronisation points of one step: the BCH all-clean test (one flag)
+``make_scan_step(T)`` chains T steps per call, JAX's ``lax.scan`` in one
+dispatch: on the card one CUDA graph of the T steps, replayed each call.
+
+Under a channel mesh (``mesh=``, ``parallel.mesh.Mesh`` with axis ``"ch"``)
+the receiver holds one local receiver of C/D channels per device, the state
+is a list of D state dicts, and a step runs every shard's step on its own
+device (the JAX ``shard_map`` of the step). Acquisition (``prime``) runs
+once at full width on the first device and the state is then split, as
+JAX places the primed pytree with ``put_state``.
+
+Host synchronisation points of one step: the BCH all-clean test (one flag;
+the captured scan and the shards use the BCH form that reads nothing back)
 and, in ``StreamSession``/``StreamEngine``, the per-step ``locked``,
 ``underflow``/``overflow`` and statistics readbacks.
 """
@@ -34,13 +44,14 @@ import time
 import numpy as np
 import torch
 
-from ..convert import state_from_numpy
-from ..ops import cplx, plsync
+from ..convert import sharded_state_from_numpy, state_from_numpy
+from ..ops import cplx, fir_cuda, ldpc_cuda, plsync
 from ..ops.crc8_dev import packet_validity
 from ..ops.demap import quantize_llrs
 from ..ops.ffsync import FeedForwardSync, FFSyncState
 from ..ops.frontend import rotate_block
 from ..parallel.batch import make_lane_fn
+from ..parallel.mesh import Mesh
 from ..spec.bb_frame import BatchTSStitcher
 from ..spec.scramblers import bb_derandomizer_bytes
 from ..utils.runtime import resolve_device
@@ -56,6 +67,9 @@ from .receiver import (
 TAIL = 182          # carried symbols: one extended header window + margin
 FP_MIN, FP_MAX = 2, 90
 FP0 = 46            # nominal frame-start index inside the carried tail
+# how the shards' whole-step scalars combine under a mesh (as XLA reduces
+# them over the sharded axis); every other statistic leads with channels
+SHARD_REDUCE = {"bch_errors": "sum", "ldpc_iters": "max"}
 
 
 def _window(x, start, length):
@@ -113,12 +127,29 @@ class StreamFrontEnd:
 
 
 class StreamReceiver(StreamFrontEnd):
-    """Locked steady-state multi-channel receiver as one device step."""
+    """Locked steady-state multi-channel receiver as one device step.
+
+    On the card unless ``device="cpu"``; with ``mesh`` (a channel mesh,
+    ``parallel.batch.make_channel_mesh``) sharded over its devices instead,
+    C divisible by D."""
 
     def __init__(self, cfg: RxConfig, n_channels: int,
-                 frames_per_step: int = 2, device=None):
+                 frames_per_step: int = 2, device=None, mesh: Mesh = None):
         if cfg.sym_sync_impl != "ffw":
             raise ValueError("StreamReceiver requires sym_sync_impl='ffw'")
+        self.mesh = mesh
+        self._shards = None
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both")
+            D = mesh.shape["ch"]
+            if n_channels % D:
+                raise ValueError(f"n_channels={n_channels} not divisible by "
+                                 f"mesh size {D}")
+            device = mesh.devices[0]
+            self._shards = [
+                StreamReceiver(cfg, n_channels // D, frames_per_step,
+                               device=d) for d in mesh.devices]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.fec = FECStage(cfg, self.device)
@@ -165,6 +196,27 @@ class StreamReceiver(StreamFrontEnd):
             "n0_refined": np.zeros((C,), np.float32),
         }
 
+    def put_iq(self, iq_block):
+        """One (C, n, 2) float32 host block onto the device, or under a
+        mesh one block of C/D channels onto each shard's device."""
+        if self.mesh is None:
+            return super().put_iq(iq_block)
+        return self.mesh.split(iq_block, 0)
+
+    def put_state(self, state_np):
+        """A host state dict (``init_state_np``'s keys, e.g. a JAX state
+        read out as numpy) onto the device, or split over the mesh."""
+        if self.mesh is None:
+            return state_from_numpy(state_np, self.device)
+        return sharded_state_from_numpy(state_np, self.mesh)
+
+    def _recent(self, blocks, n):
+        """The last ``n`` samples of a run of device blocks (per shard under
+        a mesh)."""
+        if self.mesh is None:
+            return torch.cat(blocks, dim=1)[:, -n:]
+        return [torch.cat(p, dim=1)[:, -n:] for p in zip(*blocks)]
+
     # ---------------- the step ----------------
 
     def _windows(self, sym_all, fp):
@@ -190,7 +242,32 @@ class StreamReceiver(StreamFrontEnd):
 
     def step(self, state, iq):
         """One step: state dict + iq (C, n_in, 2) float32 on the device ->
-        (new state, kbytes (C, F, kbch/8) uint8 scrambled, stats)."""
+        (new state, kbytes (C, F, kbch/8) uint8 scrambled, stats).
+
+        Under a mesh: the list of shard states + iq (a host or device
+        block, or ``put_iq``'s list) -> (the list of new shard states, and
+        kbytes and stats equal to the unsharded step's: channel-led leaves
+        concatenated on the first device, ``bch_errors`` summed and
+        ``ldpc_iters`` the maximum over the shards). Each shard's step
+        takes the BCH form that reads nothing back, so queuing one shard
+        never waits on another's card."""
+        if self.mesh is None:
+            return self._step(state, iq, sync_free=False)
+        outs = []
+        for loc, st, x in zip(self._shards, state, self.put_iq(iq)):
+            with Mesh.on(loc.device):
+                outs.append(loc._step(st, x, sync_free=True))
+        return ([o[0] for o in outs],
+                self.mesh.gather([o[1] for o in outs]),
+                self.mesh.merge([o[2] for o in outs], SHARD_REDUCE))
+
+    def make_scan_step(self, T: int):
+        """T chained steps per call: ``scan(state, blocks (T, C, n_in, 2))
+        -> (state', kbytes (T, C, F, kbch/8), stats)``, every stats leaf
+        stacked over T (the JAX ``make_scan_step``). See ``ScanStep``."""
+        return ScanStep(self, T)
+
+    def _step(self, state, iq, sync_free):
         cfg = self.cfg
         C, F, n_out = self.n_channels, self.F, self.n_out
         B = C * F
@@ -209,7 +286,8 @@ class StreamReceiver(StreamFrontEnd):
         cc = st["coarse_corrected"].repeat_interleave(F)
         out = self._lane(h, nxt, p, cc, n0_ov)
         llrsT = quantize_llrs(out["llrs"])                       # (N, B)
-        kbytes, n_corr, iters, ok, hard_t = self.fec.lane_major(llrsT)
+        kbytes, n_corr, iters, ok, hard_t = self.fec.lane_major(llrsT,
+                                                                sync_free)
         ts_ok, hdr_ok = packet_validity(kbytes ^ self.fec.bb_scramble[None])
 
         # ---- post-decoder SNR refinement (frame 0 of each channel) ----
@@ -311,7 +389,18 @@ class StreamReceiver(StreamFrontEnd):
         the device). Returns (state', ok): the priming math on the tail,
         spliced into the carried state with masked merges; CFO knowledge
         (rotator increment, cumulative offset, coarse-corrected flag)
-        survives."""
+        survives. Under a mesh the tail and mask are split (or the tail
+        comes as a list per shard), each shard re-acquires its channels and
+        ``ok`` comes back whole on the first device."""
+        if self.mesh is not None:
+            outs = []
+            for loc, st, x, m in zip(self._shards, state,
+                                     self.mesh.split(iq_tail, 0),
+                                     self.mesh.split(mask, 0)):
+                with Mesh.on(loc.device):
+                    outs.append(loc.reacquire(st, x, m))
+            return ([o[0] for o in outs],
+                    self.mesh.gather([o[1] for o in outs]))
         cfg = self.cfg
         C, L = self.n_channels, self.frame_len
         n_out, n_fe, sps = self.n_out, self._n_fe, cfg.sps
@@ -378,7 +467,9 @@ class StreamReceiver(StreamFrontEnd):
             raise ValueError(f"expected {C} channels")
         if iq_prefix.shape[1] < n_fe:
             raise ValueError(f"prime needs >= {n_fe} samples per channel")
-        iq = self.put_iq(cplx.from_np(iq_prefix[:, :n_fe]).astype(np.float32))
+        # at full width on the first device, also under a mesh
+        iq = super().put_iq(
+            cplx.from_np(iq_prefix[:, :n_fe]).astype(np.float32))
         gain = torch.ones((C,), dtype=torch.float32, device=self.device)
         if cfg.agc:
             mag = torch.sqrt(iq[..., 0] ** 2 + iq[..., 1] ** 2).mean(-1)
@@ -423,7 +514,119 @@ class StreamReceiver(StreamFrontEnd):
         state["agc_gain"] = gain.cpu().numpy()
         self._first_sof = first_sof
         self.prime_ok = prime_ok
-        return state_from_numpy(state, self.device)
+        return self.put_state(state)
+
+
+def _chain(sr, state, blocks):
+    """T = len(blocks) steps of one unsharded receiver, each with the BCH
+    form that reads nothing back; outputs stacked over T."""
+    kbs, stats = [], []
+    for t in range(blocks.shape[0]):
+        state, kb, st = sr._step(state, blocks[t], sync_free=True)
+        kbs.append(kb)
+        stats.append(st)
+    return (state, torch.stack(kbs),
+            {k: torch.stack([st[k] for st in stats]) for k in stats[0]})
+
+
+class _GraphChain:
+    """One receiver's T chained steps captured as one CUDA graph.
+
+    Static inputs: a copy of the state and a (T, C, n_in, 2) block buffer.
+    The capture follows PyTorch's graph recipe: one warm-up step on a side
+    stream first, which builds everything the step creates lazily (the
+    BCH Chien matrix, the LDPC kernel's tables, ``device_table`` entries,
+    cuBLAS's workspace, the kernels' shared-memory attributes), since a
+    host-to-device copy or a sync inside a capture is an error. The graph
+    ends by copying the final state into the static state, so a call fed
+    the state the last call returned copies nothing (JAX's donation)."""
+
+    def __init__(self, sr, state, blocks):
+        dev = sr.device
+        self.state_in = {k: v.clone() for k, v in state.items()}
+        self.blocks_in = blocks.clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _chain(sr, self.state_in, self.blocks_in[:1])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        mf0, ldpc0 = fir_cuda.LAUNCHES, ldpc_cuda.LAUNCHES
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            st, kbs, stats = _chain(sr, self.state_in, self.blocks_in)
+            for k, v in st.items():
+                if v is not self.state_in[k]:
+                    self.state_in[k].copy_(v)
+        # kernel launches the graph holds, replayed on every call
+        self.launches = {"mf_segmented": fir_cuda.LAUNCHES - mf0,
+                         "ldpc_layered": ldpc_cuda.LAUNCHES - ldpc0}
+        self.out = (self.state_in, kbs, stats)
+
+    def __call__(self, state, blocks):
+        for k, v in state.items():
+            if v is not self.state_in[k]:
+                self.state_in[k].copy_(v)
+        self.blocks_in.copy_(blocks)
+        self.graph.replay()
+        return self.out
+
+
+class ScanStep:
+    """``StreamReceiver.make_scan_step(T)``: ``scan(state, blocks (T, C,
+    n_in, 2)) -> (state', kbytes (T, C, F, kbch/8), stats)``, every stats
+    leaf stacked over T, the same values as T calls of ``step`` (JAX
+    ``make_scan_step``, a ``lax.scan`` in one dispatch).
+
+    On CPU tensors a Python loop over the step. On the card one
+    ``torch.cuda.CUDAGraph`` holding the T chained steps, captured on the
+    first call and replayed on every call: each call copies its arguments
+    into the graph's static buffers and runs one ``replay()``, with no host
+    sync. The returned tensors are the graph's own buffers: they are valid
+    until the next call of the same scan, which overwrites them (the
+    counterpart of JAX's ``donate_argnums``); clone what must outlive it.
+    A capture that fails raises; it never falls back to eager steps.
+
+    Under a mesh: one graph per shard, each on its shard's device; state is
+    the list of shard states, blocks are split along channels, and kbytes
+    and stats come back merged as ``StreamReceiver.step`` merges them.
+    ``launches_per_call`` is what the graphs hold: the kernel wrappers
+    count their launches while a graph is captured, not when it replays."""
+
+    def __init__(self, sr, T: int):
+        self.sr, self.T = sr, T
+        self._graphs = {}
+
+    @property
+    def launches_per_call(self):
+        out = {"mf_segmented": 0, "ldpc_layered": 0}
+        for g in self._graphs.values():
+            for k, n in g.launches.items():
+                out[k] += n
+        return out
+
+    def __call__(self, state, blocks):
+        sr = self.sr
+        if sr.mesh is None:
+            return self._local(0, sr, state, blocks)
+        outs = [self._local(i, loc, st, b) for i, (loc, st, b) in enumerate(
+            zip(sr._shards, state, sr.mesh.split(blocks, 1)))]
+        return ([o[0] for o in outs],
+                sr.mesh.gather([o[1] for o in outs], 1),
+                sr.mesh.merge([o[2] for o in outs], SHARD_REDUCE, dim=1))
+
+    def _local(self, i, sr, state, blocks):
+        blocks = torch.as_tensor(blocks, device=sr.device)
+        want = (self.T, sr.n_channels, sr.n_in, 2)
+        if tuple(blocks.shape) != want:
+            raise ValueError(f"blocks of shape {tuple(blocks.shape)}, "
+                             f"expected {want}")
+        if sr.device.type != "cuda":
+            return _chain(sr, state, blocks)
+        with Mesh.on(sr.device):
+            g = self._graphs.get(i)
+            if g is None:
+                g = self._graphs[i] = _GraphChain(sr, state, blocks)
+            return g(state, blocks)
 
 
 class StreamSession:
@@ -448,11 +651,12 @@ class StreamSession:
 
     def step(self, blk):
         """One stream step. ``blk``: (C, n_in, 2) float32, numpy or a
-        device tensor. Returns (kbytes, stats); reading ``locked`` and the
-        buffer flags here waits for the step (the price of per-step lock
-        monitoring)."""
+        device tensor (or ``put_iq``'s list under a mesh). Returns (kbytes,
+        stats); reading ``locked`` and the buffer flags here waits for the
+        step (the price of per-step lock monitoring)."""
         sr = self.sr
-        dblk = blk if isinstance(blk, torch.Tensor) else sr.put_iq(blk)
+        dblk = blk if isinstance(blk, (torch.Tensor, list)) \
+            else sr.put_iq(blk)
         self._blk_hist.append(dblk)
         if len(self._blk_hist) > self._nblk:
             self._blk_hist.pop(0)
@@ -460,9 +664,9 @@ class StreamSession:
         flags = torch.stack([~stats["locked"], stats["underflow"],
                              stats["overflow"]]).cpu().numpy()
         self.need |= flags.any(axis=0)
-        have = sum(b.shape[1] for b in self._blk_hist)
+        have = len(self._blk_hist) * sr.n_in      # blocks of one step each
         if self.need.any() and have >= sr._n_fe:
-            tail = torch.cat(self._blk_hist, dim=1)[:, -sr._n_fe:]
+            tail = sr._recent(self._blk_hist, sr._n_fe)
             mask = torch.as_tensor(self.need, device=sr.device)
             self.state, ok = sr.reacquire(self.state, tail, mask)
             ok = ok.cpu().numpy()
@@ -481,16 +685,17 @@ class StreamEngine:
     the extension is built) by a reader thread, so the device->host fetch
     overlaps the next steps. ``receive`` takes (C, n) complex IQ and
     returns per-channel TS byte arrays (a flat array for one channel).
+    With ``mesh`` the receiver is sharded over a channel mesh.
     """
 
     get_stats = get_stats
 
     def __init__(self, cfg: RxConfig, n_channels: int = 1,
-                 frames_per_step: int = 2, device=None):
+                 frames_per_step: int = 2, device=None, mesh: Mesh = None):
         self.cfg = cfg
         self.sr = StreamReceiver(cfg, n_channels=n_channels,
                                  frames_per_step=frames_per_step,
-                                 device=device)
+                                 device=device, mesh=mesh)
         self.sess = StreamSession(self.sr)
         self.n_channels = n_channels
         self.stats = RxStats()

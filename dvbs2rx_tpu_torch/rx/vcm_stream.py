@@ -87,10 +87,19 @@ class VCMStreamReceiver(StreamFrontEnd):
     (C, n_in, 2) float32 on the receiver's device. ``outputs`` holds, per
     expected PLS, ``DRAIN`` slots of decoded ``B_fec``-frame batches (see
     ``step``).
+
+    ``allow_dummy`` (default True) sizes the chain walk for dummy frames,
+    the shortest there are; False sizes it for the smallest expected data
+    frame (a stream that carries no dummies), as the JAX receiver does.
     """
 
+    # the BCH form that reads nothing back (``ops.bch``): set on the local
+    # receivers of a mesh (``parallel.vcm_shard``)
+    _bch_sync_free = False
+
     def __init__(self, cfg, n_channels: int, frames_per_step: int = 2,
-                 fec_lanes: int = None, device=None):
+                 fec_lanes: int = None, device=None,
+                 allow_dummy: bool = True):
         if not cfg.acm_vcm:
             raise ValueError("VCMStreamReceiver requires acm_vcm=True")
         if cfg.sym_sync_impl != "ffw":
@@ -128,9 +137,10 @@ class VCMStreamReceiver(StreamFrontEnd):
         self.L_max = max(i.plframe_len for i in infos)
         self.Lp_max = self.L_max - 90
         L_min_data = min(i.plframe_len for i in infos)
+        L_min_walk = DUMMY_PLFRAME_LEN if allow_dummy else L_min_data
         self.n_out = frames_per_step * self.L_max
         self.n_in = self.n_out * cfg.sps
-        self.K_max = self.n_out // DUMMY_PLFRAME_LEN + 2
+        self.K_max = self.n_out // L_min_walk + 2
         self.F_pay = self.n_out // L_min_data + 2
         self.B_lanes = C * self.F_pay
         if fec_lanes is None:
@@ -555,7 +565,8 @@ class VCMStreamReceiver(StreamFrontEnd):
         fec, info = self._fecs[si], self._infos[si]
         n = llrs.shape[0]
         hard, _, iters, _ = self._ldpc[si](llrs[:, : fec.nldpc])
-        corrected, n_corr = self._bch[si](hard[:, : fec.nbch])
+        corrected, n_corr = self._bch[si](hard[:, : fec.nbch],
+                                          self._bch_sync_free)
         kbits = corrected[:, : fec.kbch].to(torch.int64).reshape(n, -1, 8)
         kbytes = (kbits * device_table(_BYTE_W, llrs.device)).sum(-1)
         kbytes = Fn.pad(kbytes.to(torch.uint8),

@@ -932,3 +932,174 @@ def test_rx_app_loopback_on_the_card(card, tmp_path, capsys):
     _assert_consecutive(np.fromfile(tmp_path / "out.ts", np.uint8), pkts, 55)
     assert after["mf_segmented"] > before["mf_segmented"]
     assert after["ldpc_layered"] > before["ldpc_layered"]
+
+
+# ------------------------------------------------ scan step and the meshes
+
+def _scan_case(dev, C=2, T=3, seed=3):
+    """A primed short-frame StreamReceiver on ``dev`` with T blocks of its
+    stimulus (15 dB) on the card."""
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short")
+    sr = StreamReceiver(cfg, n_channels=C, frames_per_step=2, device=dev)
+    tx = Transmitter(TxConfig(modcod="qpsk1/2", frame_size="short"))
+    rng = np.random.default_rng(seed)
+    pkts = rng.integers(0, 256, (260, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    iq1 = awgn_channel(tx.ts_to_iq(pkts.reshape(-1)), 15.0, sps=2, seed=seed)
+    iq = np.stack([iq1] * C)
+    blocks = torch.as_tensor(np.stack([
+        cplx.from_np(iq[:, sr._n_fe + t * sr.n_in:
+                        sr._n_fe + (t + 1) * sr.n_in]).astype(np.float32)
+        for t in range(T)]), device="cuda")
+    return cfg, sr, iq[:, : sr._n_fe], blocks
+
+
+def _eager(sr, state, blocks):
+    out = []
+    for t in range(blocks.shape[0]):
+        state, kb, stats = sr.step(state, blocks[t])
+        out.append((kb, stats))
+    return state, out
+
+
+def _assert_like_eager(got, want):
+    _, kbs, stats = got
+    for t, (kb, st) in enumerate(want):
+        assert torch.equal(kbs[t], kb.to(kbs.device))
+        for k, v in st.items():
+            g, v = stats[k][t].cpu(), v.cpu()
+            if v.dtype.is_floating_point:
+                torch.testing.assert_close(g, v, rtol=1e-6, atol=1e-12,
+                                           msg=k)
+            else:
+                assert torch.equal(g, v), k
+
+
+def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
+    """One capture of T = 3 chained steps holds T launches of each ctypes
+    kernel (counted while captured; the profiler sees them in one replay),
+    and its replays equal T eager steps from the same state, call after
+    call, with no host sync."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    _, sr, prefix, blocks = _scan_case(card)
+    primed = sr.prime(prefix)
+    _, want = _eager(sr, primed, blocks)
+    scan = sr.make_scan_step(3)
+    before = (fir_cuda.LAUNCHES, ldpc_cuda.LAUNCHES)
+    out = scan(primed, blocks)
+    assert scan.launches_per_call == {"mf_segmented": 3, "ldpc_layered": 3}
+    # the warm-up step and the capture
+    assert (fir_cuda.LAUNCHES - before[0], ldpc_cuda.LAUNCHES - before[1]) \
+        == (4, 4)
+    _assert_like_eager(out, want)
+    state_buf = out[0]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            again = scan(primed, blocks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    assert again[0] is state_buf            # the graph's own buffers
+    _assert_like_eager(again, want)
+    assert (fir_cuda.LAUNCHES - before[0], ldpc_cuda.LAUNCHES - before[1]) \
+        == (4, 4)                           # a replay runs no Python
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan(primed, blocks)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    counts = {k: sum(e.count for e in prof.key_averages()
+                     if k + "_kernel" in e.key)
+              for k in ("mf_segmented", "ldpc_layered")}
+    assert counts == {"mf_segmented": 3, "ldpc_layered": 3}, names
+
+
+def test_scan_chains_its_own_state(card):
+    """Feeding a call the state the last call returned copies nothing and
+    continues the stream: two calls of T = 2 equal four eager steps."""
+    _, sr, prefix, blocks = _scan_case(card, T=4, seed=5)
+    primed = sr.prime(prefix)
+    _, want = _eager(sr, primed, blocks)
+    scan = sr.make_scan_step(2)
+    state, kbs, stats = scan(primed, blocks[:2])
+    _assert_like_eager((state, kbs, stats), want[:2])
+    _assert_like_eager(scan(state, blocks[2:]), want[2:])
+
+
+def test_a_capture_that_cannot_complete_raises(card, monkeypatch):
+    """A step that reads back to the host inside the capture (here the
+    branching BCH) makes the capture fail, and the scan raises: it never
+    falls back to eager steps."""
+    from dvbs2rx_tpu_torch.rx import stream
+
+    def branching_chain(sr, state, blocks):
+        for t in range(blocks.shape[0]):
+            state, kb, st = sr._step(state, blocks[t], sync_free=False)
+        return state, kb[None], {k: v[None] for k, v in st.items()}
+
+    _, sr, prefix, blocks = _scan_case(card, T=2, seed=6)
+    monkeypatch.setattr(stream, "_chain", branching_chain)
+    with pytest.raises(RuntimeError):
+        sr.make_scan_step(2)(sr.prime(prefix), blocks)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_mesh_of_one_card_repeated_equals_one_card(card, D):
+    """A channel mesh of cuda:0 repeated D times: steps and a scan call
+    equal the unsharded receiver's eager steps; BatchedPipeline(mesh=)
+    equals the unsharded pipeline."""
+    from dvbs2rx_tpu_torch.parallel.batch import (
+        BatchedPipeline,
+        make_channel_mesh,
+    )
+
+    cfg, sr, prefix, blocks = _scan_case(card, C=4, T=2, seed=7)
+    _, want = _eager(sr, sr.prime(prefix), blocks)
+    mesh = make_channel_mesh(["cuda:0"] * D)
+    msr = StreamReceiver(cfg, n_channels=4, frames_per_step=2, mesh=mesh)
+    st = msr.prime(prefix)
+    got = []
+    for t in range(2):
+        st, kb, stats = msr.step(st, blocks[t])
+        got.append((kb, stats))
+    _assert_like_eager((None, torch.stack([g[0] for g in got]),
+                        {k: torch.stack([g[1][k] for g in got])
+                         for k in got[0][1]}), want)
+    _assert_like_eager(msr.make_scan_step(2)(msr.prime(prefix), blocks),
+                       want)
+    syms = _pipeline_symbols(cfg, 8, 2, 0.3, seed=8)
+    plain = BatchedPipeline(cfg, 8, 2, device=card)
+    h, p = plain.frame_inputs_from_symbols(syms)
+    kb0, n00, st0 = plain.step(h, p, True)
+    kb1, n01, st1 = BatchedPipeline(cfg, 8, 2, mesh=mesh).step(h, p, True)
+    assert torch.equal(kb1, kb0)
+    torch.testing.assert_close(n01, n00, rtol=1e-6, atol=0)
+    assert int(st1["bch_errors"]) == 0 and int(st1["ldpc_iters"]) == \
+        int(st0["ldpc_iters"])
+
+
+def test_mesh_of_two_cards_equals_one_card(card):
+    """A channel mesh of two distinct cards against one card. It skips on
+    a machine with one card, where the multi-card path runs only as
+    cuda:0 repeated."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from dvbs2rx_tpu_torch.parallel.batch import make_channel_mesh
+
+    cfg, sr, prefix, blocks = _scan_case(card, C=4, T=2, seed=9)
+    _, want = _eager(sr, sr.prime(prefix), blocks)
+    mesh = make_channel_mesh(["cuda:0", "cuda:1"])
+    msr = StreamReceiver(cfg, n_channels=4, frames_per_step=2, mesh=mesh)
+    _assert_like_eager(msr.make_scan_step(2)(msr.prime(prefix), blocks),
+                       want)
+    st = msr.prime(prefix)
+    assert st[1]["sbuf"].device == torch.device("cuda", 1)
+    for t in range(2):
+        st, kb, stats = msr.step(st, blocks[t])
+        assert torch.equal(kb, want[t][0])

@@ -55,12 +55,19 @@ def test_every_module_imports_without_jax():
     assert "dvbs2rx_tpu_torch.ops.gardner_cuda" in mods
     assert "dvbs2rx_tpu_torch.ops.resample" in mods
     for m in ("apps.dvbs2_rx", "apps.dvbs2_tx", "apps.dvbs2_rec",
-              "ops.encode", "io.iq", "utils.params"):
+              "ops.encode", "io.iq", "utils.params", "parallel.mesh",
+              "parallel.stream_shard", "parallel.vcm_shard"):
         assert "dvbs2rx_tpu_torch." + m in mods
+    # the port's tools and examples, loaded from their files
+    files = ["tools/torch_iqrec.py", "examples/torch_loopback_sim.py",
+             "examples/torch_pl_sync_demo.py"]
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        f"for i, f in enumerate({files!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'f{i}', f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k.startswith('jaxlib') or "
         "k == 'dvbs2rx_tpu' or k.startswith('dvbs2rx_tpu.'))\n"
