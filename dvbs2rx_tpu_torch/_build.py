@@ -35,6 +35,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # stream, c_int for each int (ctypes would otherwise cut a pointer to 32
 # bits), c_float for each float
 _SIGNATURES = {
+    "bch_berlekamp_massey_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "bch_chien_launch": [_P] * 6 + [_I] * 2 + [_P] + [_I] * 4 + [_P],
+    "crc8_validity_launch": [_P] * 4 + [_I] * 4 + [_P],
     "gardner_launch": [_P] * 16 + [_I] * 11 + [_F] * 4 + [_P],
     "gardner_smem_bytes": [_I] * 2,
     "mf_segmented_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P],
@@ -152,6 +155,28 @@ def lib():
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+_COUNTERS = {}      # kernel -> (read, reset), registered by its wrapper
+
+
+def register_counter(kernel: str, read, reset):
+    """Each wrapper registers its kernel's launch counter when it is
+    imported: ``read()`` gives the count, ``reset()`` sets it to 0 with
+    whatever the wrapper counts beside it (shapes, speculation)."""
+    _COUNTERS[kernel] = (read, reset)
+
+
+def launch_counts() -> dict:
+    """How many times this process launched each hand-written kernel, by
+    kernel (the wrappers' counters; a CUDA graph's replays are not seen)."""
+    return {k: read() for k, (read, _) in _COUNTERS.items()}
+
+
+def reset_launch_counts():
+    """Every wrapper's counters to 0."""
+    for _, reset in _COUNTERS.values():
+        reset()
 
 
 def check(err: int, what: str):

@@ -40,8 +40,9 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 import numpy as np
 
 from .. import __version__
+from .._build import launch_counts
 from ..io.iq import iter_iq
-from ..ops import fir_cuda, gardner_cuda, ldpc_cuda
+from ..ops import fir_cuda, ldpc_cuda
 from ..ops.resample import DeviceResampler
 from ..rx.receiver import RxConfig, make_receiver
 from ..rx.stream import StreamEngine
@@ -464,9 +465,7 @@ def iter_source_multi(args):
 def kernel_launches() -> dict:
     """The port's kernel launch counters: how many times this process
     launched each hand-written kernel (none run on the CPU)."""
-    return {"mf_segmented": fir_cuda.LAUNCHES,
-            "gardner": gardner_cuda.LAUNCHES,
-            "ldpc_layered": ldpc_cuda.LAUNCHES}
+    return launch_counts()
 
 
 def kernel_shapes() -> dict:

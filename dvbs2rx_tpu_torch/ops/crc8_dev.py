@@ -6,6 +6,12 @@ Kogge-Stone scan whose levels XOR a shifted copy through constant 8x8 bit
 matrices, and the CRC of every 187-byte window follows algebraically:
 ``crc(frame[p-187..p-1]) = S[p-1] ^ M^187 . S[p-188]``. The host TS stitch
 is left a flag lookup and a memcpy.
+
+That scan is the plain version (``packet_validity_plain``, ~354 small
+launches per call). On the card ``packet_validity`` runs one launch of the
+hand-written kernel instead (``ops/crc8_cuda.py``, ``csrc/crc8.cu``: each
+window's CRC from a table, slid along the row); the CPU runs the plain
+version.
 """
 
 import functools
@@ -14,6 +20,7 @@ import numpy as np
 import torch
 
 from ..spec.scramblers import CRC8_POLY, crc8_table
+from . import crc8_cuda
 
 
 @functools.lru_cache(maxsize=4)
@@ -87,8 +94,16 @@ def packet_validity(frames_u8, window: int = 187):
 
     frames_u8: (B, n) uint8 descrambled BBFRAME bytes. Returns
     (ok_packed (B, ceil(n/8)) uint8 LSB-first, hdr_ok (B,) int32):
-    ``ok[p]`` (p >= window) says byte p equals the CRC-8 of the preceding
-    ``window`` bytes; ``hdr_ok`` checks the 10-byte BBHEADER."""
+    ``ok[p]`` says byte p equals the CRC-8 of the ``window`` bytes before
+    it (of bytes 0..p-1 for p < window); ``hdr_ok`` checks the 10-byte
+    BBHEADER. The kernel on the card, the plain version on the CPU
+    (``crc8_cuda.crc8_validity``)."""
+    return crc8_cuda.crc8_validity(frames_u8, window)
+
+
+def packet_validity_plain(frames_u8, window: int = 187):
+    """Plain version of the CRC-8 kernel: the prefix scan (same contract as
+    ``packet_validity``; any leading axes)."""
     bits, S = crc8_prefix_bits(frames_u8)
     n = frames_u8.shape[-1]
     A = _matpow(_m1(), window)

@@ -29,6 +29,15 @@ LAUNCHES = 0     # kernel launches; incremented only where the kernel runs
 LAUNCH_SHAPES = {}  # the same launches by (C, n, S, seg_len, L, sps,
                     # off_bound)
 
+
+def _reset_counts():
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCH_SHAPES.clear()
+
+
+_build.register_counter("mf_segmented", lambda: LAUNCHES, _reset_counts)
+
 # kThreads, kR, kStages, kMaxTaps and the tap buckets of
 # csrc/mf_segmented.cu
 THREADS, OUTPUTS_PER_THREAD, STAGES, MAX_TAPS = 128, 8, 2, 64

@@ -32,6 +32,16 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
+def _reset_counts():
+    LAUNCHES_BY_CODE.clear()
+    LAUNCH_SHAPES.clear()
+
+
+_build.register_counter("ldpc_layered",
+                        lambda: sum(LAUNCHES_BY_CODE.values()),
+                        _reset_counts)
+
+
 def kernel_tables(code: LDPCCode):
     """Flat int32 edge tables of the kernel: (layer_ptr (q+1,), base (E,),
     shift (E,), sync (E,)) over the data edges of all layers in order.

@@ -44,8 +44,9 @@ import time
 import numpy as np
 import torch
 
+from .._build import launch_counts
 from ..convert import sharded_state_from_numpy, state_from_numpy
-from ..ops import cplx, fir_cuda, ldpc_cuda, plsync
+from ..ops import cplx, plsync
 from ..ops.crc8_dev import packet_validity
 from ..ops.demap import quantize_llrs
 from ..ops.ffsync import FeedForwardSync, FFSyncState
@@ -535,9 +536,9 @@ class _GraphChain:
     Static inputs: a copy of the state and a (T, C, n_in, 2) block buffer.
     The capture follows PyTorch's graph recipe: one warm-up step on a side
     stream first, which builds everything the step creates lazily (the
-    BCH Chien matrix, the LDPC kernel's tables, ``device_table`` entries,
-    cuBLAS's workspace, the kernels' shared-memory attributes), since a
-    host-to-device copy or a sync inside a capture is an error. The graph
+    LDPC kernel's tables, ``device_table`` entries, cuBLAS's workspace,
+    the kernels' shared-memory attributes), since a host-to-device copy or
+    a sync inside a capture is an error. The graph
     ends by copying the final state into the static state, so a call fed
     the state the last call returned copies nothing (JAX's donation)."""
 
@@ -550,7 +551,7 @@ class _GraphChain:
         with torch.cuda.stream(side):
             _chain(sr, self.state_in, self.blocks_in[:1])
         torch.cuda.current_stream(dev).wait_stream(side)
-        mf0, ldpc0 = fir_cuda.LAUNCHES, ldpc_cuda.LAUNCHES
+        before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             st, kbs, stats = _chain(sr, self.state_in, self.blocks_in)
@@ -558,8 +559,8 @@ class _GraphChain:
                 if v is not self.state_in[k]:
                     self.state_in[k].copy_(v)
         # kernel launches the graph holds, replayed on every call
-        self.launches = {"mf_segmented": fir_cuda.LAUNCHES - mf0,
-                         "ldpc_layered": ldpc_cuda.LAUNCHES - ldpc0}
+        self.launches = {k: n - before[k]
+                         for k, n in launch_counts().items()}
         self.out = (self.state_in, kbs, stats)
 
     def __call__(self, state, blocks):
@@ -598,7 +599,7 @@ class ScanStep:
 
     @property
     def launches_per_call(self):
-        out = {"mf_segmented": 0, "ldpc_layered": 0}
+        out = dict.fromkeys(launch_counts(), 0)
         for g in self._graphs.values():
             for k, n in g.launches.items():
                 out[k] += n

@@ -24,10 +24,13 @@ from dvbs2rx_tpu_torch.spec import bch_spec
 from dvbs2rx_tpu_torch.spec.ldpc_tables import available_tables, get_code
 from dvbs2rx_tpu_torch.tx import Transmitter, TxConfig, awgn_channel
 
+from dvbs2rx_tpu_torch._build import launch_counts
 from dvbs2rx_tpu_torch.convert import state_to_numpy, state_from_numpy
-from dvbs2rx_tpu_torch.ops import cplx, fir_cuda, ldpc_cuda
+from dvbs2rx_tpu_torch.ops import (
+    bch, bch_cuda, cplx, crc8_cuda, fir_cuda, ldpc_cuda)
 from dvbs2rx_tpu_torch.ops.bch import BCHDecoder
-from dvbs2rx_tpu_torch.ops.crc8_dev import packet_validity
+from dvbs2rx_tpu_torch.ops.crc8_dev import packet_validity, packet_validity_plain
+from dvbs2rx_tpu_torch.ops.encode import get_device_encoder
 from dvbs2rx_tpu_torch.ops.ldpc import LDPCDecoder
 from dvbs2rx_tpu_torch.rx.receiver import RxConfig
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
@@ -977,9 +980,10 @@ def _assert_like_eager(got, want):
 
 def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     """One capture of T = 3 chained steps holds T launches of each ctypes
-    kernel (counted while captured; the profiler sees them in one replay),
-    and its replays equal T eager steps from the same state, call after
-    call, with no host sync."""
+    kernel of the step (MF, LDPC, and the sync-free form's
+    Berlekamp-Massey, Chien and CRC-8; counted while captured; the profiler
+    sees them in one replay), and its replays equal T eager steps from the
+    same state, call after call, with no host sync."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -988,12 +992,15 @@ def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     primed = sr.prime(prefix)
     _, want = _eager(sr, primed, blocks)
     scan = sr.make_scan_step(3)
-    before = (fir_cuda.LAUNCHES, ldpc_cuda.LAUNCHES)
+    before = launch_counts()
     out = scan(primed, blocks)
-    assert scan.launches_per_call == {"mf_segmented": 3, "ldpc_layered": 3}
+    step_kernels = ("mf_segmented", "ldpc_layered", "bch_berlekamp_massey",
+                    "bch_chien", "crc8_validity")
+    assert scan.launches_per_call == {
+        k: 3 if k in step_kernels else 0 for k in before}
     # the warm-up step and the capture
-    assert (fir_cuda.LAUNCHES - before[0], ldpc_cuda.LAUNCHES - before[1]) \
-        == (4, 4)
+    captured = {k: n - before[k] for k, n in launch_counts().items()}
+    assert all(captured[k] == 4 for k in step_kernels), captured
     _assert_like_eager(out, want)
     state_buf = out[0]
     torch.cuda.set_sync_debug_mode("warn")
@@ -1006,8 +1013,8 @@ def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     assert not [w for w in caught if "synchroniz" in str(w.message)]
     assert again[0] is state_buf            # the graph's own buffers
     _assert_like_eager(again, want)
-    assert (fir_cuda.LAUNCHES - before[0], ldpc_cuda.LAUNCHES - before[1]) \
-        == (4, 4)                           # a replay runs no Python
+    # a replay runs no Python
+    assert {k: n - before[k] for k, n in launch_counts().items()} == captured
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         scan(primed, blocks)
@@ -1015,8 +1022,8 @@ def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     names = [e.key for e in prof.key_averages()]
     counts = {k: sum(e.count for e in prof.key_averages()
                      if k + "_kernel" in e.key)
-              for k in ("mf_segmented", "ldpc_layered")}
-    assert counts == {"mf_segmented": 3, "ldpc_layered": 3}, names
+              for k in step_kernels}
+    assert counts == dict.fromkeys(step_kernels, 3), names
 
 
 def test_scan_chains_its_own_state(card):
@@ -1103,3 +1110,170 @@ def test_mesh_of_two_cards_equals_one_card(card):
     for t in range(2):
         st, kb, stats = msr.step(st, blocks[t])
         assert torch.equal(kb, want[t][0])
+
+
+# ---- the FEC tail kernels (Berlekamp-Massey, Chien, CRC-8)
+
+
+def _fec_tail_bits(card, frame_size, rate, B, seed, clean=False):
+    """(nbch, B) lane-major codewords from the port's encoder with frame b
+    carrying b mod (2t + 4) errors (every third frame's in the parity
+    bits), or none; the decoder and the errors per frame."""
+    enc = get_device_encoder(frame_size, rate, card)
+    fec = enc.fec
+    rng = np.random.default_rng(seed)
+    msg = torch.as_tensor(rng.integers(0, 2, (fec.kbch, B), dtype=np.uint8),
+                          device=card)
+    n_err = np.zeros(B, np.int64) if clean else np.arange(B) % (2 * fec.t + 4)
+    flips = np.zeros((fec.nbch, B), np.uint8)
+    for b, k in enumerate(n_err):
+        lo = fec.kbch if b % 3 == 1 else 0
+        flips[lo + rng.choice(fec.nbch - lo, int(k), replace=False), b] = 1
+    bits_t = enc.bch_encode_lane_major(msg) ^ torch.as_tensor(flips,
+                                                              device=card)
+    dec = BCHDecoder(frame_size, fec.t, fec.nbch, fec.kbch, card)
+    return dec, bits_t, n_err
+
+
+@pytest.mark.parametrize("frame_size,rate,B", [
+    ("short", "1/2", 32), ("normal", "1/2", 28), ("normal", "2/3", 24),
+    ("normal", "8/9", 20)])
+def test_bch_kernels_match_plain(card, frame_size, rate, B):
+    """Berlekamp-Massey's sigma and L, the corrected bits and n_corr of the
+    kernels equal the plain versions' on 0, 1..t and t+1..2t+3 errors, in
+    both forms and both layouts, and in a captured graph of the sync-free
+    form; an all-clean batch in the default form launches nothing."""
+    dec, bits_t, n_err = _fec_tail_bits(card, frame_size, rate, B, 20 + B)
+    bits = bits_t.t()
+    S = dec._syndromes(bits)
+    bm = (dec._exp, dec._log, dec.t, dec.ord)
+    before = dict(bch_cuda.LAUNCHES)
+    sig_k, L_k = bch_cuda.berlekamp_massey(S, *bm)
+    got = []
+    for sync_free in (False, True):
+        got_t, n = dec.decode_lane_major(bits_t, sync_free)
+        got.append((got_t.t(), n))
+        got.append(dec(bits_t.t().contiguous(), sync_free))
+    assert {k: v - before[k] for k, v in bch_cuda.LAUNCHES.items()} == {
+        "bch_berlekamp_massey": 5, "bch_chien": 4}
+    assert dec._T is None                    # the kernels need no T
+    sig_p, L_p = bch.berlekamp_massey_plain(S, *bm)
+    assert torch.equal(sig_k, sig_p) and torch.equal(L_k, L_p)
+    want = bch.correct_plain(bits, S, sig_p, L_p, dec.chien_matrix(), dec.t)
+    np.testing.assert_array_equal(want[1].cpu().numpy(),
+                                  np.where(n_err <= dec.t, n_err, -1))
+    for c, n in got:
+        assert torch.equal(c, want[0]) and torch.equal(n, want[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dec.decode_lane_major(bits_t, True)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out_t, out_n = dec.decode_lane_major(bits_t, True)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out_t.t(), want[0]) and torch.equal(out_n, want[1])
+    dec2, clean_t, _ = _fec_tail_bits(card, frame_size, rate, B, 1, True)
+    before = dict(bch_cuda.LAUNCHES)
+    got_t, n = dec2.decode_lane_major(clean_t)
+    assert got_t.data_ptr() == clean_t.data_ptr() and not n.any()
+    assert bch_cuda.LAUNCHES == before
+    got_t, n = dec2.decode_lane_major(clean_t, True)
+    assert torch.equal(got_t, clean_t) and not n.any()
+
+
+def test_fec_tail_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    dec, bits_t, _ = _fec_tail_bits(card, "short", "1/2", 4, 3)
+    bits = bits_t.t()
+    S = dec._syndromes(bits)
+    bm = (dec._exp, dec._log, dec.t, dec.ord)
+    chien = (dec._exp16, dec._log, dec.t, dec.nbch, dec.ord)
+    sig, L = bch_cuda.berlekamp_massey(S, *bm)
+    with pytest.raises(ValueError):
+        bch_cuda.berlekamp_massey(S.to(torch.int32), *bm)
+    with pytest.raises(ValueError):
+        bch_cuda.berlekamp_massey(S[:, :-1], *bm)
+    with pytest.raises(ValueError):
+        bch_cuda.berlekamp_massey(S.t().contiguous().t(), *bm)
+    with pytest.raises(ValueError):
+        bch_cuda.chien_correct(bits.to(torch.int32), S, sig, L, *chien)
+    with pytest.raises(ValueError):
+        bch_cuda.chien_correct(bits[:, :-1], S, sig, L, *chien)
+    with pytest.raises(ValueError):
+        bch_cuda.chien_correct(bits, S.cpu(), sig, L, *chien)
+    with pytest.raises(ValueError):                 # tables on the CPU
+        bch_cuda.berlekamp_massey(S, dec._exp.cpu(), *bm[1:])
+    with pytest.raises(ValueError):
+        bch_cuda.chien_correct(bits, S, sig, L, dec._exp16.cpu(), *chien[1:])
+    with pytest.raises(ValueError):                 # not a DVB-S2 code
+        bch_cuda.berlekamp_massey(
+            torch.zeros((4, 26), dtype=torch.int64, device=card), *bm[:2],
+            13, dec.ord)
+    frames = torch.zeros((3, 879), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError):
+        crc8_cuda.crc8_validity(frames.to(torch.int32))
+    with pytest.raises(ValueError):
+        crc8_cuda.crc8_validity(frames[None])
+    with pytest.raises(ValueError):
+        crc8_cuda.crc8_validity(frames[:, :9])
+    with pytest.raises(ValueError):
+        crc8_cuda.crc8_validity(
+            torch.zeros((2, crc8_cuda.MAX_N + 1), dtype=torch.uint8,
+                        device=card))
+    with pytest.raises(ValueError):
+        crc8_cuda.crc8_validity(frames.t().contiguous().t())
+
+
+@pytest.mark.parametrize("n", [879, 883, 4026, 4836, 7274])
+def test_crc8_kernel_matches_plain(card, n):
+    """Random bytes at n (no n is a multiple of 8, so every row has pad
+    bits), a row of zeros, and Tx BBFRAMEs of the code whose frames have n
+    bytes."""
+    rng = np.random.default_rng(n)
+    frames = rng.integers(0, 256, (37, n), dtype=np.uint8)
+    frames[0] = 0
+    x = torch.from_numpy(frames).to(card)
+    before = crc8_cuda.LAUNCHES
+    got = packet_validity(x)
+    assert crc8_cuda.LAUNCHES == before + 1
+    want = packet_validity_plain(x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for modcod, fs in (("qpsk1/2", "normal"), ("8psk3/5", "normal"),
+                       ("qpsk1/2", "short")):
+        tx = Transmitter(TxConfig(modcod=modcod, frame_size=fs))
+        if tx.kbch_bytes != n:
+            continue
+        pkts = rng.integers(0, 256, (6 * tx.df_bytes // 188 + 2, 188),
+                            dtype=np.uint8)
+        pkts[:, 0] = 0x47
+        tx_frames = torch.from_numpy(np.ascontiguousarray(
+            tx.bbframes(pkts.reshape(-1))[:5] ^ tx.bb_scramble)).to(card)
+        got = packet_validity(tx_frames)
+        want = packet_validity_plain(tx_frames)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(want[1].all())
+
+
+def test_scan_step_counts_the_fec_tail_kernels_at_capture(card):
+    """make_scan_step(2) at a small width: the graph holds two launches of
+    each FEC tail kernel (counted at capture, the profiler sees them in one
+    replay), and a call equals two eager steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, sr, prefix, blocks = _scan_case(card, C=2, T=2, seed=10)
+    primed = sr.prime(prefix)
+    _, want = _eager(sr, primed, blocks)
+    scan = sr.make_scan_step(2)
+    _assert_like_eager(scan(primed, blocks), want)
+    fec_tail = ("bch_berlekamp_massey", "bch_chien", "crc8_validity")
+    assert {k: scan.launches_per_call[k] for k in fec_tail} == \
+        dict.fromkeys(fec_tail, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan(primed, blocks)
+        torch.cuda.synchronize()
+    counts = {k: sum(e.count for e in prof.key_averages()
+                     if k + "_kernel" in e.key) for k in fec_tail}
+    assert counts == dict.fromkeys(fec_tail, 2)

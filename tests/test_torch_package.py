@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax():
     assert "dvbs2rx_tpu_torch.ops.resample" in mods
     for m in ("apps.dvbs2_rx", "apps.dvbs2_tx", "apps.dvbs2_rec",
               "ops.encode", "io.iq", "utils.params", "parallel.mesh",
-              "parallel.stream_shard", "parallel.vcm_shard"):
+              "parallel.stream_shard", "parallel.vcm_shard", "ops.bch_cuda",
+              "ops.crc8_cuda"):
         assert "dvbs2rx_tpu_torch." + m in mods
     # the port's tools and examples, loaded from their files
     files = ["tools/torch_iqrec.py", "examples/torch_loopback_sim.py",
