@@ -35,7 +35,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # stream, c_int for each int (ctypes would otherwise cut a pointer to 32
 # bits), c_float for each float
 _SIGNATURES = {
-    "bch_berlekamp_massey_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "bch_locator_launch": [_P] * 9 + [_I] * 7 + [_P],
     "bch_chien_launch": [_P] * 6 + [_I] * 2 + [_P] + [_I] * 4 + [_P],
     "crc8_validity_launch": [_P] * 4 + [_I] * 4 + [_P],
     "gardner_launch": [_P] * 16 + [_I] * 11 + [_F] * 4 + [_P],

@@ -980,8 +980,8 @@ def _assert_like_eager(got, want):
 
 def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     """One capture of T = 3 chained steps holds T launches of each ctypes
-    kernel of the step (MF, LDPC, and the sync-free form's
-    Berlekamp-Massey, Chien and CRC-8; counted while captured; the profiler
+    kernel of the step (MF, LDPC, and the sync-free form's BCH locator,
+    Chien and CRC-8; counted while captured; the profiler
     sees them in one replay), and its replays equal T eager steps from the
     same state, call after call, with no host sync."""
     import warnings
@@ -994,7 +994,7 @@ def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     scan = sr.make_scan_step(3)
     before = launch_counts()
     out = scan(primed, blocks)
-    step_kernels = ("mf_segmented", "ldpc_layered", "bch_berlekamp_massey",
+    step_kernels = ("mf_segmented", "ldpc_layered", "bch_locator",
                     "bch_chien", "crc8_validity")
     assert scan.launches_per_call == {
         k: 3 if k in step_kernels else 0 for k in before}
@@ -1112,19 +1112,22 @@ def test_mesh_of_two_cards_equals_one_card(card):
         assert torch.equal(kb, want[t][0])
 
 
-# ---- the FEC tail kernels (Berlekamp-Massey, Chien, CRC-8)
+# ---- the FEC tail kernels (BCH locator, Chien, CRC-8)
 
 
 def _fec_tail_bits(card, frame_size, rate, B, seed, clean=False):
     """(nbch, B) lane-major codewords from the port's encoder with frame b
-    carrying b mod (2t + 4) errors (every third frame's in the parity
-    bits), or none; the decoder and the errors per frame."""
+    carrying (b + 7) mod (2t + 4) errors where B <= 2, else b mod (2t + 4)
+    (every third frame's in the parity bits), or none; the decoder and the
+    errors per frame."""
     enc = get_device_encoder(frame_size, rate, card)
     fec = enc.fec
     rng = np.random.default_rng(seed)
     msg = torch.as_tensor(rng.integers(0, 2, (fec.kbch, B), dtype=np.uint8),
                           device=card)
-    n_err = np.zeros(B, np.int64) if clean else np.arange(B) % (2 * fec.t + 4)
+    first = 7 if B <= 2 else 0
+    n_err = (np.zeros(B, np.int64) if clean
+             else (np.arange(B) + first) % (2 * fec.t + 4))
     flips = np.zeros((fec.nbch, B), np.uint8)
     for b, k in enumerate(n_err):
         lo = fec.kbch if b % 3 == 1 else 0
@@ -1135,82 +1138,146 @@ def _fec_tail_bits(card, frame_size, rate, B, seed, clean=False):
     return dec, bits_t, n_err
 
 
+def _captured(fn):
+    """fn() captured as a CUDA graph (a warm-up call on a side stream
+    first) and replayed once: the graph's outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("layout", ["lane-major", "rows", "rows-slice"])
+@pytest.mark.parametrize("B", [1, 2, 8, 37, 48, 128, 256])
+def test_locator_kernel_matches_plain(card, B, layout):
+    """The locator kernel's S, sigma and L equal locator_plain's on S2_B4
+    codewords with errors (uncorrectable frames included) and on a clean
+    batch, in either layout (and rows cut from wider rows at an odd
+    offset), eagerly and replayed from a captured graph, call after call
+    (its scratch returns to zero). B = 48 stages a half-empty last group
+    by 16-byte copies, 256 takes eight groups."""
+    for clean in (False, True):
+        dec, bits_t, _ = _fec_tail_bits(card, "normal", "1/2", B, 40 + B,
+                                        clean)
+        if layout == "lane-major":
+            bits = bits_t.t()
+        elif layout == "rows":
+            bits = bits_t.t().contiguous()
+        else:
+            wide = torch.zeros((B, dec.nbch + 40), dtype=torch.uint8,
+                               device=card)
+            wide[:, 13: 13 + dec.nbch] = bits_t.t()
+            bits = wide[:, 13: 13 + dec.nbch]
+        args = (dec._odd, dec._exp16, dec._log16, dec._zech16,
+                bch_cuda.new_scratch(B, dec.t, card), dec.t, dec.nbch,
+                dec.ord)
+        want = bch.locator_plain(bits, dec.syndrome_matrix(), dec._exp,
+                                 dec._log, dec.t, dec.ord)
+        before = bch_cuda.LAUNCHES["bch_locator"]
+        for _ in range(2):
+            got = bch_cuda.locator(bits, *args)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert bch_cuda.LAUNCHES["bch_locator"] == before + 2
+        got = _captured(lambda: bch_cuda.locator(bits, *args))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert bool((want[0] == 0).all()) == clean
+
+
 @pytest.mark.parametrize("frame_size,rate,B", [
     ("short", "1/2", 32), ("normal", "1/2", 28), ("normal", "2/3", 24),
     ("normal", "8/9", 20)])
 def test_bch_kernels_match_plain(card, frame_size, rate, B):
-    """Berlekamp-Massey's sigma and L, the corrected bits and n_corr of the
+    """The locator's S, sigma and L, the corrected bits and n_corr of the
     kernels equal the plain versions' on 0, 1..t and t+1..2t+3 errors, in
     both forms and both layouts, and in a captured graph of the sync-free
-    form; an all-clean batch in the default form launches nothing."""
+    form; an all-clean batch in the default form launches the locator
+    only."""
     dec, bits_t, n_err = _fec_tail_bits(card, frame_size, rate, B, 20 + B)
     bits = bits_t.t()
-    S = dec._syndromes(bits)
-    bm = (dec._exp, dec._log, dec.t, dec.ord)
     before = dict(bch_cuda.LAUNCHES)
-    sig_k, L_k = bch_cuda.berlekamp_massey(S, *bm)
+    loc_k = dec.locator(bits)
     got = []
     for sync_free in (False, True):
         got_t, n = dec.decode_lane_major(bits_t, sync_free)
         got.append((got_t.t(), n))
         got.append(dec(bits_t.t().contiguous(), sync_free))
     assert {k: v - before[k] for k, v in bch_cuda.LAUNCHES.items()} == {
-        "bch_berlekamp_massey": 5, "bch_chien": 4}
-    assert dec._T is None                    # the kernels need no T
-    sig_p, L_p = bch.berlekamp_massey_plain(S, *bm)
-    assert torch.equal(sig_k, sig_p) and torch.equal(L_k, L_p)
-    want = bch.correct_plain(bits, S, sig_p, L_p, dec.chien_matrix(), dec.t)
+        "bch_locator": 5, "bch_chien": 4}
+    assert dec._A_mat is None and dec._T is None  # the kernels need neither
+    want_loc = bch.locator_plain(bits, dec.syndrome_matrix(), dec._exp,
+                                 dec._log, dec.t, dec.ord)
+    assert all(torch.equal(g, w) for g, w in zip(loc_k, want_loc))
+    want = bch.correct_plain(bits, *want_loc, dec.chien_matrix(), dec.t)
     np.testing.assert_array_equal(want[1].cpu().numpy(),
                                   np.where(n_err <= dec.t, n_err, -1))
     for c, n in got:
         assert torch.equal(c, want[0]) and torch.equal(n, want[1])
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        dec.decode_lane_major(bits_t, True)
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out_t, out_n = dec.decode_lane_major(bits_t, True)
-    g.replay()
-    torch.cuda.synchronize()
+    out_t, out_n = _captured(lambda: dec.decode_lane_major(bits_t, True))
     assert torch.equal(out_t.t(), want[0]) and torch.equal(out_n, want[1])
     dec2, clean_t, _ = _fec_tail_bits(card, frame_size, rate, B, 1, True)
     before = dict(bch_cuda.LAUNCHES)
     got_t, n = dec2.decode_lane_major(clean_t)
     assert got_t.data_ptr() == clean_t.data_ptr() and not n.any()
-    assert bch_cuda.LAUNCHES == before
+    assert {k: v - before[k] for k, v in bch_cuda.LAUNCHES.items()} == {
+        "bch_locator": 1, "bch_chien": 0}
     got_t, n = dec2.decode_lane_major(clean_t, True)
     assert torch.equal(got_t, clean_t) and not n.any()
+
+
+def test_card_decoder_builds_neither_a_nor_t(card):
+    """A decoder on the card holds no syndrome matrix A and no Chien matrix
+    T after its entry points, in either form, clean or not: the card's
+    memory grows by less than 2 MB (the kernels' tables are built with the
+    decoder; A alone is 49.8 MB at S2_B4, T 431 MB)."""
+    dec, bits_t, _ = _fec_tail_bits(card, "normal", "1/2", 128, 9)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    for sync_free in (False, True):
+        out = dec.decode_lane_major(bits_t, sync_free)
+        out = dec(bits_t.t().contiguous(), sync_free)
+    del out
+    torch.cuda.synchronize()
+    assert dec._A_mat is None and dec._T is None
+    assert torch.cuda.memory_allocated() - m0 < 2 << 20
 
 
 def test_fec_tail_wrappers_raise_on_what_the_kernels_do_not_take(card):
     dec, bits_t, _ = _fec_tail_bits(card, "short", "1/2", 4, 3)
     bits = bits_t.t()
-    S = dec._syndromes(bits)
-    bm = (dec._exp, dec._log, dec.t, dec.ord)
+    loc = (dec._odd, dec._exp16, dec._log16, dec._zech16,
+           bch_cuda.new_scratch(4, dec.t, card), dec.t, dec.nbch, dec.ord)
     chien = (dec._exp16, dec._log, dec.t, dec.nbch, dec.ord)
-    sig, L = bch_cuda.berlekamp_massey(S, *bm)
+    S, sig, L = bch_cuda.locator(bits, *loc)
     with pytest.raises(ValueError):
-        bch_cuda.berlekamp_massey(S.to(torch.int32), *bm)
+        bch_cuda.locator(bits.to(torch.int32), *loc)
     with pytest.raises(ValueError):
-        bch_cuda.berlekamp_massey(S[:, :-1], *bm)
+        bch_cuda.locator(bits[:, :-1], *loc)
+    with pytest.raises(ValueError):                 # tables on the CPU
+        bch_cuda.locator(bits, dec._odd.cpu(), *loc[1:])
     with pytest.raises(ValueError):
-        bch_cuda.berlekamp_massey(S.t().contiguous().t(), *bm)
+        bch_cuda.locator(bits, *loc[:3], dec._zech16.cpu(), *loc[4:])
+    with pytest.raises(ValueError):         # another batch size's scratch
+        bch_cuda.locator(bits, *loc[:4],
+                         bch_cuda.new_scratch(40, dec.t, card), *loc[5:])
+    with pytest.raises(ValueError):                 # not a DVB-S2 code
+        bch_cuda.locator(bits, *loc[:5], 11, *loc[6:])
     with pytest.raises(ValueError):
         bch_cuda.chien_correct(bits.to(torch.int32), S, sig, L, *chien)
     with pytest.raises(ValueError):
         bch_cuda.chien_correct(bits[:, :-1], S, sig, L, *chien)
     with pytest.raises(ValueError):
         bch_cuda.chien_correct(bits, S.cpu(), sig, L, *chien)
-    with pytest.raises(ValueError):                 # tables on the CPU
-        bch_cuda.berlekamp_massey(S, dec._exp.cpu(), *bm[1:])
     with pytest.raises(ValueError):
         bch_cuda.chien_correct(bits, S, sig, L, dec._exp16.cpu(), *chien[1:])
-    with pytest.raises(ValueError):                 # not a DVB-S2 code
-        bch_cuda.berlekamp_massey(
-            torch.zeros((4, 26), dtype=torch.int64, device=card), *bm[:2],
-            13, dec.ord)
+    with pytest.raises(ValueError):
+        bch_cuda.chien_correct(bits, S.t().contiguous().t(), sig, L, *chien)
     frames = torch.zeros((3, 879), dtype=torch.uint8, device=card)
     with pytest.raises(ValueError):
         crc8_cuda.crc8_validity(frames.to(torch.int32))
@@ -1267,7 +1334,7 @@ def test_scan_step_counts_the_fec_tail_kernels_at_capture(card):
     _, want = _eager(sr, primed, blocks)
     scan = sr.make_scan_step(2)
     _assert_like_eager(scan(primed, blocks), want)
-    fec_tail = ("bch_berlekamp_massey", "bch_chien", "crc8_validity")
+    fec_tail = ("bch_locator", "bch_chien", "crc8_validity")
     assert {k: scan.launches_per_call[k] for k in fec_tail} == \
         dict.fromkeys(fec_tail, 2)
     torch.cuda.synchronize()

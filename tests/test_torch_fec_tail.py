@@ -1,11 +1,11 @@
 """The FEC tail's plain versions against the JAX package, bit for bit, and
 the arithmetic of their CUDA kernels mirrored in numpy.
 
-On the CPU the port's ``BCHDecoder`` runs its plain Berlekamp-Massey loop
-and Chien product (``ops/bch.py``; the wrappers of ``ops/bch_cuda.py`` take
-them for CPU tensors too), and ``packet_validity`` its plain prefix scan
-(``ops/crc8_cuda.py``). These
-tests hold them to ``dvbs2rx_tpu/ops/bch.py`` and ``crc8_dev.py``:
+On the CPU the port's ``BCHDecoder`` runs its plain syndrome product,
+Berlekamp-Massey loop and Chien product (``ops/bch.py``; the wrappers of
+``ops/bch_cuda.py`` take them for CPU tensors too), and ``packet_validity``
+its plain prefix scan (``ops/crc8_cuda.py``). These tests hold them to
+``dvbs2rx_tpu/ops/bch.py`` and ``crc8_dev.py``:
 
 - Berlekamp-Massey alone at t = 8, 10, 12 in GF(2^14) and GF(2^16), on
   random syndromes and on the syndromes of 0..2t+3 errors (an error at bit
@@ -20,10 +20,13 @@ tests hold them to ``dvbs2rx_tpu/ops/bch.py`` and ``crc8_dev.py``:
 
 Exact throughout: every output is an integer. The kernels cannot run here
 (no nvcc, no card), so the numpy mirrors below repeat what they compute
-(the sliding window CRC of ``csrc/crc8.cu``, the log-domain Chien
-evaluation of ``csrc/bch.cu``) against the plain versions; the wrappers on
-CPU tensors take the plain version, launch nothing, and importing them
-builds nothing. The on-card tier is ``tests/test_torch_cuda.py``.
+(the sliding window CRC of ``csrc/crc8.cu``; the locator kernel's
+syndrome stage, chunked and staged as the kernel splits the positions,
+and its Berlekamp-Massey rounds in the log domain with the Zech table; the
+log-domain Chien evaluation of ``csrc/bch.cu``) against the plain versions
+and JAX; the wrappers on CPU tensors take the plain version, launch
+nothing, and importing them builds nothing. The on-card tier is
+``tests/test_torch_cuda.py``.
 """
 
 import subprocess
@@ -50,6 +53,14 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 SHORT = ("short", 12, 7200, 7032)
 NORMAL_1_4 = ("normal", 12, 16200, 16008)
+# (frame size, t, nbch, kbch) of the locator mirrors: short 1/2, normal
+# 1/2 (t = 12), 2/3 (t = 10) and 8/9 (t = 8)
+LOCATOR_CODES = {
+    "short_1_2": ("short", 12, 7200, 7032),
+    "normal_1_2": ("normal", 12, 32400, 32208),
+    "normal_2_3": ("normal", 10, 43200, 43040),
+    "normal_8_9": ("normal", 8, 57600, 57472),
+}
 
 
 def _gf_pair(framesize, t):
@@ -225,13 +236,255 @@ def test_crc8_kernel_arithmetic_mirrored():
         np.packbits(ok, axis=1, bitorder="little"), want.numpy())
 
 
+def _u32(x):
+    return np.asarray(x, np.uint32)
+
+
+def _wrap(x, ordn):
+    """csrc/bch.cu's wrap: x mod ord for x < 2 ord, in uint32 arithmetic
+    (below ord, x - ord wraps high and the min keeps x)."""
+    x = _u32(x)
+    return np.minimum(x, x - np.uint32(ordn))
+
+
+def _fold(x, ordn):
+    """csrc/bch.cu's fold: x mod (2^m - 1) as (x & ord) + (x >> m)."""
+    x = _u32(x)
+    return _wrap((x & np.uint32(ordn)) + (x >> np.uint32(ordn.bit_length())),
+                 ordn)
+
+
+@pytest.fixture(scope="module")
+def locator_codes():
+    """Per code of LOCATOR_CODES: the port's CPU decoder, a JAX decoder
+    holding only its syndrome matrix (the full one builds T), and B =
+    2t + 4 codewords carrying 0..2t+3 errors, every third frame's in the
+    parity bits only."""
+    out = {}
+    for name, code in LOCATOR_CODES.items():
+        framesize, t, nbch, kbch = code
+        dec = bch.BCHDecoder(*code, device="cpu")
+        jdec = object.__new__(jbch.BCHDecoder)
+        jdec.t, jdec.m = t, dec.m
+        jdec._A = jbch_spec.syndrome_bit_matrix(framesize, t, nbch).astype(
+            np.int8)
+        rng = np.random.default_rng(nbch)
+        n_errs = np.arange(2 * t + 4)
+        bits = _codewords(code, n_errs, rng,
+                          parity_only=tuple(range(1, 2 * t + 4, 3)))
+        out[name] = (dec, jdec, bits, n_errs)
+    return out
+
+
+def _staged_syndromes(buf, sb, se, B, dec, n_sm=132):
+    """The locator kernel's syndrome stage on the bits buffer ``buf`` with
+    strides (sb, se) in elements (frame f, position e at f sb + e se):
+    ``locator_plan``'s grid, each block staging STAGE_QUADS quads at a time
+    in two halves (frames past B read as 0), warp w XOR-ing the table rows
+    of its share of each half, in pairs of positions, into its lane's
+    words, the block's warps XOR-ed together and
+    the blocks' sums XOR-ed into the group's accumulators; then the odd
+    syndromes from the accumulators' halves and the even ones by squaring
+    (log S_2j = 2 log S_j mod ord). -> (B, 2t) int64."""
+    t, nbch, ordn = dec.t, dec.nbch, dec.ord
+    odd = bch.odd_power_table(dec._exp16, t, nbch, ordn).numpy().view(
+        np.uint32)
+    kw = odd.shape[1]
+    assert kw == bch.odd_words(t)
+    groups, chunks = bch_cuda.locator_plan(B, nbch, n_sm)
+    quads, warps = nbch // 4, bch_cuda.LOCATOR_WARPS
+    flat = buf.reshape(-1)
+    acc = np.zeros((groups * 32, kw), np.uint32)
+    for g in range(groups):
+        f = 32 * g + np.arange(32)
+        for c in range(chunks):
+            q0, q1 = c * quads // chunks, (c + 1) * quads // chunks
+            assert q1 - q0 >= warps
+            s_w = np.zeros((warps, 32, kw), np.uint32)
+            for qs in range(q0, q1, bch_cuda.STAGE_QUADS):
+                n_p = 4 * min(bch_cuda.STAGE_QUADS, q1 - qs)
+                e = 4 * qs + np.arange(n_p)
+                idx = np.minimum(f[None, :] * sb + e[:, None] * se,
+                                 flat.size - 1)
+                staged = np.where(f[None, :] < B, flat[idx], 0)   # (n_p, 32)
+                rows = odd[e]
+                half = 4 * ((n_p // 4 + 1) // 2)    # two halves in flight
+                for p0, p1 in ((0, half), (half, n_p)):
+                    pairs = (p1 - p0) // 2
+                    for w in range(warps):  # pairs of positions a warp
+                        pa = p0 + 2 * (pairs * w // warps)
+                        pb = p0 + 2 * (pairs * (w + 1) // warps)
+                        sel = (staged[pa:pb] & 1).astype(np.uint32)
+                        terms = rows[pa:pb, None, :] * sel[..., None]
+                        s_w[w] ^= np.bitwise_xor.reduce(terms, axis=0)
+            acc[32 * g: 32 * g + 32] ^= np.bitwise_xor.reduce(s_w, axis=0)
+    acc = acc[:B]
+    exp = dec._exp.numpy()
+    log = dec._log.numpy()
+    S = np.zeros((B, 2 * t), np.int64)
+    for j in range(1, 2 * t + 1):
+        if j % 2:
+            k = (j - 1) // 2
+            S[:, j - 1] = (acc[:, k // 2] >> (16 * (k % 2))) & 0xFFFF
+        else:
+            h = S[:, j // 2 - 1]
+            S[:, j - 1] = np.where(h == 0, 0,
+                                   exp[(2 * log[h]) % ordn])
+    return S
+
+
+@pytest.mark.parametrize("layout", ["lane-major", "rows"])
+@pytest.mark.parametrize("code", list(LOCATOR_CODES))
+def test_locator_syndrome_stage_mirrored(locator_codes, code, layout):
+    """The staged, chunked odd syndromes and the squared even ones equal
+    the plain product (``_syndromes``) and the JAX decoder's, on 0..2t+3
+    errors, with the bits in either layout (the lane-major decode's (nbch,
+    B) buffer, or rows of frames)."""
+    dec, jdec, bits, n_errs = locator_codes[code]
+    B = bits.shape[0]
+    if layout == "lane-major":
+        buf, sb, se = np.ascontiguousarray(bits.T), 1, B
+    else:
+        buf, sb, se = bits, dec.nbch, 1
+    got = _staged_syndromes(buf, sb, se, B, dec)
+    want = dec._syndromes(torch.from_numpy(bits)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.asarray(jdec._syndromes(jnp.asarray(bits))))
+    assert not got[n_errs == 0].any() and got[n_errs > 0].any(axis=1).all()
+
+
+def test_locator_plan_covers_every_position_once():
+    """Every quad of positions falls in one block of each group, every warp
+    gets at least one quad, and the grid is one block per multiprocessor
+    (or fewer, where the code has too few quads)."""
+    for B, nbch in ((1, 7200), (2, 7200), (8, 32400), (37, 43200),
+                    (128, 32400), (128, 57600), (1024, 16200), (4, 3240)):
+        groups, chunks = bch_cuda.locator_plan(B, nbch, 132)
+        assert groups == -(-B // 32) and groups * chunks <= max(132, groups)
+        quads = nbch // 4
+        edges = [c * quads // chunks for c in range(chunks + 1)]
+        assert edges[0] == 0 and edges[-1] == quads
+        assert min(np.diff(edges)) >= bch_cuda.LOCATOR_WARPS
+
+
+def _bm_log_domain(S, dec):
+    """csrc/bch.cu's Berlekamp-Massey rounds in the log domain, 8 lanes a
+    frame (lane r holds the coefficients i = r + 8q of C and x^m B, cut at
+    2t + 1): the syndromes' logs (a zero's log is 2^28; any log >= 2^27
+    counts as zero), each lane's terms log C[i] + log S[n-i], i <= n, summed
+    by the Zech table as a tree, the 8 lanes' sums joined by butterfly
+    (lane r with lane r ^ 1, 2, 4), the update of C with log(d/b) x^m B,
+    and x^m B shifted one coefficient up (x C after a length change), all in
+    uint32 arithmetic. -> (sigma (B, t+1), L (B,)) int64."""
+    t, ordn = dec.t, dec.ord
+    W, Z = 2 * t + 1, np.uint32(1 << 28)
+    Q = (W + 7) // 8
+    zech = bch.zech_table(dec._exp16, dec._log16, ordn).numpy().view(
+        np.uint16).astype(np.uint32)
+    log16 = dec._log16.numpy().view(np.uint16).astype(np.uint32)
+    exp = dec._exp.numpy()
+    B = S.shape[0]
+
+    def add(la, lb):
+        lo = np.minimum(la, lb)
+        k = np.maximum(la, lb) - lo
+        r = _wrap(lo + zech[np.minimum(k, ordn)], ordn)
+        return np.where(k == 0, Z, r).astype(np.uint32)
+
+    ls = log16[S]
+    ls = np.where(ls == 0xFFFF, Z, ls).astype(np.uint32)       # (B, 2t)
+    i_all = np.arange(8 * Q)
+    lc = np.full((B, 8 * Q), Z, np.uint32)
+    lb = np.full((B, 8 * Q), Z, np.uint32)
+    lc[:, 0] = 0
+    lb[:, 1] = 0
+    logb = np.zeros(B, np.uint32)
+    L = np.zeros(B, np.int64)
+    for n in range(2 * t):
+        term = np.full((B, 8 * Q), Z, np.uint32)
+        live = i_all <= n
+        term[:, live] = _wrap(lc[:, live] + ls[:, n - i_all[live]], ordn)
+        tm = [term[:, 8 * q: 8 * q + 8] for q in range(Q)]
+        part = add(add(tm[0], tm[1]),
+                   add(tm[2], tm[3]) if Q == 4 else tm[2])
+        for o in (1, 2, 4):
+            part = add(part, part[:, np.arange(8) ^ o])
+        assert (part == part[:, :1]).all()
+        ld = part[:, 0]
+        update = ld < ordn
+        grow = update & (2 * L <= n)
+        lq = _wrap(ld + np.uint32(ordn) - logb, ordn)
+        lcn = add(lc, _wrap(lq[:, None] + lb, ordn))
+        src = np.where(grow[:, None], lc, lb)
+        lb = np.full_like(lb, Z)
+        lb[:, 1:W] = src[:, : W - 1]
+        L = np.where(grow, n + 1 - L, L)
+        logb = np.where(grow, ld, logb)
+        lc = np.where(update[:, None], lcn, lc)
+    lc = lc[:, : t + 1]
+    sigma = np.where(lc >= ordn, 0, exp[np.minimum(lc, ordn)])
+    return sigma.astype(np.int64), L
+
+
+@pytest.mark.parametrize("framesize,t", [
+    ("short", 12), ("normal", 12), ("normal", 10), ("normal", 8)])
+def test_locator_berlekamp_massey_mirrored(framesize, t):
+    """The locator kernel's log-domain rounds give berlekamp_massey_plain's
+    and the JAX loop's sigma and L on the syndromes of 0..2t+3 errors, on
+    random syndromes (no code's, so most are uncorrectable) and on zeros."""
+    rng = np.random.default_rng(30 + t)
+    jdec, _ = _gf_pair(framesize, t)
+    nbch = 7200 if framesize == "short" else 57600
+    code = (framesize, t, nbch, nbch - 16 * t)
+    dec = bch.BCHDecoder(*code, device="cpu")
+    real = _error_syndromes(bch_spec.field_for(framesize), t,
+                            np.arange(2 * t + 4), nbch, rng)
+    rand = rng.integers(0, dec.ord + 1, (12, 2 * t))
+    S = np.concatenate([real, rand, np.zeros((1, 2 * t), np.int64)])
+    sig, L = _bm_log_domain(S, dec)
+    sig_p, L_p = bch.berlekamp_massey_plain(torch.from_numpy(S), dec._exp,
+                                            dec._log, t, dec.ord)
+    np.testing.assert_array_equal(sig, sig_p.numpy())
+    np.testing.assert_array_equal(L, L_p.numpy())
+    jsig, jL = jdec._berlekamp_massey(jnp.asarray(S, jnp.int32))
+    np.testing.assert_array_equal(sig, np.asarray(jsig))
+    np.testing.assert_array_equal(L, np.asarray(jL))
+
+
+def test_kernel_tables_match_their_definitions(short_pair):
+    """The odd-power rows are the syndrome matrix's odd columns, packed two
+    to a word; Z(k) = log(1 + alpha^k), Z(0) marked and Z(ord) = 0; the
+    plain versions' tables come back from the 16-bit ones."""
+    _, dec = short_pair
+    t, nbch, ordn, m = dec.t, dec.nbch, dec.ord, dec.m
+    A = bch_spec.syndrome_bit_matrix("short", t, nbch).reshape(nbch, 2 * t, m)
+    vals = (A.astype(np.int64) << np.arange(m)).sum(-1)       # (nbch, 2t)
+    odd = bch.odd_power_table(dec._exp16, t, nbch, ordn).numpy().view(
+        np.uint32)
+    for k in range(t):
+        np.testing.assert_array_equal(
+            (odd[:, k // 2] >> (16 * (k % 2))) & 0xFFFF, vals[:, 2 * k])
+    z = bch.zech_table(dec._exp16, dec._log16, ordn).numpy().view(np.uint16)
+    exp, log = dec._exp.numpy(), dec._log.numpy()
+    k = np.arange(1, ordn)
+    np.testing.assert_array_equal(z[k], log[1 ^ exp[k]])
+    assert z[0] == 0xFFFF and z[ordn] == 0 and z.size == ordn + 1
+    e, lg = bch.field_tables(dec._exp16, dec._log16, ordn)
+    assert torch.equal(e, dec._exp) and torch.equal(lg, dec._log)
+    np.testing.assert_array_equal(
+        bch.syndrome_matrix(dec._exp16, t, nbch, ordn).numpy(),
+        A.reshape(nbch, -1).astype(np.float32))
+
+
 def test_chien_kernel_arithmetic_mirrored(short_pair):
     """csrc/bch.cu's Chien evaluation: sigma(alpha^(-p_e)) as the XOR of
-    exp[(log sigma_i - i p_e) mod ord] over the nonzero coefficients, thread
-    k at positions k, k + 1024, ..., each exponent stepped by 1024 i from
-    one to the next; its roots are the plain version's error mask, and the
-    kernel's n_corr rule (0 clean, -1 when L > t or the roots are not L,
-    else the roots) its n_corr."""
+    exp[(log sigma_i - i p_e) mod ord] over the list of nonzero
+    coefficients, thread k at positions k and k + 512, then k + 1024 and
+    k + 1536, ..., its exponents set up with the Mersenne fold and stepped
+    by 1024 i mod ord; its roots are the plain version's error mask, and
+    the kernel's n_corr rule (0 clean, -1 when L > t or the roots are not
+    L, else the roots) its n_corr."""
     _, dec = short_pair
     rng = np.random.default_rng(5)
     n_errs = [0, 1, 6, 12, 13, 19]
@@ -240,22 +493,30 @@ def test_chien_kernel_arithmetic_mirrored(short_pair):
     sig, L = bch.berlekamp_massey_plain(S, dec._exp, dec._log, dec.t,
                                         dec.ord)
     err, _ = bch.chien_plain(sig, dec.chien_matrix(), dec.t)
-    _, want_n = bch.correct_plain(bits, S, sig, L, dec.chien_matrix(), dec.t)
-    exp16 = dec._exp.numpy()[: dec.ord].astype(np.uint16)
+    _, want_n = bch.correct_plain(bits, S, sig.contiguous(), L,
+                                  dec.chien_matrix(), dec.t)
+    ordn = dec.ord
+    exp16 = dec._exp.numpy()[:ordn].astype(np.uint16)
     log = dec._log.numpy()
     K = bch_cuda.CHIEN_THREADS
-    assert dec.t * K < dec.ord          # one conditional subtract wraps
     k = np.arange(K)                    # the threads, side by side
+    p0 = _u32(np.maximum(dec.nbch - 1 - k, 0))
     for b in range(len(n_errs)):
         s = sig[b].numpy()
-        v = np.zeros(-(-dec.nbch // K) * K, np.int64)
-        x = {i: (int(log[s[i]]) - i * (dec.nbch - 1 - k)) % dec.ord
-             for i in range(dec.t + 1) if s[i]}
-        for e0 in range(0, dec.nbch, K):
-            for i in x:
-                v[e0 + k] ^= exp16[x[i]]
-                x[i] = x[i] + i * K
-                x[i] = np.where(x[i] >= dec.ord, x[i] - dec.ord, x[i])
+        coef = [i for i in range(dec.t + 1) if s[i]]  # the compact list
+        v = np.zeros(-(-dec.nbch // (2 * K)) * 2 * K, np.int64)
+        xa, xb, st = {}, {}, {}
+        for i in coef:
+            xa[i] = _wrap(np.uint32(log[s[i]] + ordn) - _fold(i * p0, ordn),
+                          ordn)
+            xb[i] = _wrap(xa[i] + _fold(i * K, ordn), ordn)
+            st[i] = _fold(i * 2 * K, ordn)
+        for e0 in range(0, dec.nbch, 2 * K):
+            for i in coef:
+                v[e0 + k] ^= exp16[xa[i]]
+                v[e0 + K + k] ^= exp16[xb[i]]
+                xa[i] = _wrap(xa[i] + st[i], ordn)
+                xb[i] = _wrap(xb[i] + st[i], ordn)
         v = v[: dec.nbch]
         np.testing.assert_array_equal(v == 0, err[b].numpy())
         roots = int((v == 0).sum())
@@ -276,13 +537,18 @@ def test_wrappers_on_cpu_tensors_take_the_plain_version(short_pair,
     monkeypatch.setattr(_build, "lib", no_build)
     rng = np.random.default_rng(6)
     bits = torch.from_numpy(_codewords(SHORT, [0, 4, 15], rng))
-    S = dec._syndromes(bits)
     before = (dict(bch_cuda.LAUNCHES), crc8_cuda.LAUNCHES)
-    bm = (dec._exp, dec._log, dec.t, dec.ord)
+    loc = (None, dec._exp16, dec._log16, None, None, dec.t, dec.nbch,
+           dec.ord)
     chien = (dec._exp16, dec._log, dec.t, dec.nbch, dec.ord)
-    sig, L = bch_cuda.berlekamp_massey(S, *bm)
-    sig_p, L_p = bch.berlekamp_massey_plain(S, *bm)
-    assert torch.equal(sig, sig_p) and torch.equal(L, L_p)
+    S, sig, L = bch_cuda.locator(bits, *loc)
+    for g, w in zip((S, sig, L), bch.locator_plain(
+            bits, dec.syndrome_matrix(), dec._exp, dec._log, dec.t,
+            dec.ord)):
+        assert torch.equal(g, w)
+    assert torch.equal(S, dec._syndromes(bits)) and sig.is_contiguous()
+    for g, w in zip((S, sig, L), dec.locator(bits)):
+        assert torch.equal(g, w)
     got = bch_cuda.chien_correct(bits, S, sig, L, *chien)
     want = bch.correct_plain(bits, S, sig, L, dec.chien_matrix(), dec.t)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -294,7 +560,9 @@ def test_wrappers_on_cpu_tensors_take_the_plain_version(short_pair,
     assert (dict(bch_cuda.LAUNCHES), crc8_cuda.LAUNCHES) == before
     assert not any(bch_cuda.LAUNCHES.values()) and crc8_cuda.LAUNCHES == 0
     with pytest.raises(ValueError):
-        bch_cuda.berlekamp_massey(S.to(torch.int32), *bm)
+        bch_cuda.locator(bits.to(torch.int32), *loc)
+    with pytest.raises(ValueError):
+        bch_cuda.locator(bits, None, dec._exp16[:-8], *loc[2:])
     with pytest.raises(ValueError):
         bch_cuda.chien_correct(bits[:, :-1], S, sig, L, *chien)
     with pytest.raises(ValueError):

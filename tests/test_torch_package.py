@@ -132,7 +132,8 @@ def test_tables_from_spec_match_the_modules():
                                   stage.descr.numpy())
     np.testing.assert_array_equal(t["bb_scramble"].numpy(),
                                   stage.bb_scramble.numpy())
-    np.testing.assert_array_equal(t["bch_A"].numpy(), stage.bch._A.numpy())
+    np.testing.assert_array_equal(t["bch_A"].numpy(),
+                                  stage.bch.syndrome_matrix().numpy())
     sr = StreamReceiver(cfg, n_channels=1, device="cpu")
     np.testing.assert_array_equal(t["rrc_bank"].numpy(), sr.sync.bank.numpy())
     assert int(t["ldpc_layer_ptr"][-1]) == t["ldpc_edge_base"].numel()

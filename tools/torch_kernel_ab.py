@@ -17,7 +17,14 @@ them on ``chip_smoke.py``'s inputs with its timer (``_time_ms``: median of
 * ``gardner_ms``: ``SymbolSync.step`` (the Gardner kernel) on one
   4,096-symbol front-end block of phase 8's waveform, polyphase at sps 2
   and 4 (``gardner_sps4_ms``), one channel; null for a checkout without
-  the Gardner kernel.
+  the Gardner kernel;
+* ``bch_ms``: ``BCHDecoder.decode_lane_major(sync_free=True)`` on phase
+  11's S2_B4, B = 128 error batch (``_fec_tail_codewords`` with phase 11's
+  seed): the whole card decode, whatever kernels the checkout has (the
+  syndrome matmul and two kernels before the locator, the locator and
+  Chien after); ``bch_clean_ms`` the default form on a clean batch (the
+  syndromes and the all-clean readback); null for a checkout without the
+  BCH kernels.
 
 It prints one JSON line per run, with a digest of the LDPC case's four
 outputs, and a last line with each checkout's times and whether every
@@ -85,7 +92,37 @@ def child(root: str):
     print(json.dumps({
         "root": root, "ldpc_ms": ldpc_ms,
         "ldpc_iter_us": (per_trials[4] - per_trials[0]) / 4 * 1e3,
-        "mf_ms": mf_ms, **gardner, "digest": h.hexdigest()[:16]}))
+        "mf_ms": mf_ms, **gardner, **_bch_times(h),
+        "digest": h.hexdigest()[:16]}))
+
+
+def _bch_times(h):
+    """The BCH decode of the checkout at phase 11's S2_B4, B = 128 shape:
+    sync-free on the error batch, the default form on a clean one."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from dvbs2rx_tpu_torch.ops import bch
+
+    try:
+        from dvbs2rx_tpu_torch.ops import bch_cuda  # noqa: F401
+    except ImportError:     # a checkout from before the BCH kernels
+        return {"bch_ms": None, "bch_clean_ms": None}
+    from dvbs2rx_tpu_torch.ops.encode import get_device_encoder
+
+    enc = get_device_encoder("normal", "1/2", "cuda")
+    fec = enc.fec
+    rng = np.random.default_rng(2032)
+    bits_t, _, _ = chip_smoke._fec_tail_codewords(enc, 128, rng)
+    clean_t, _, _ = chip_smoke._fec_tail_codewords(enc, 128, rng, True)
+    dec = bch.BCHDecoder("normal", fec.t, fec.nbch, fec.kbch, device="cuda")
+    for t in dec.decode_lane_major(bits_t, True):
+        h.update(t.cpu().numpy().tobytes())
+    return {"bch_ms": chip_smoke._time_ms(
+                lambda: dec.decode_lane_major(bits_t, True)),
+            "bch_clean_ms": chip_smoke._time_ms(
+                lambda: dec.decode_lane_major(clean_t))}
 
 
 def main():
@@ -113,7 +150,8 @@ def main():
             runs.append(json.loads(line))
     summary = {root: {k: [x[k] for x in runs if x["root"] == root]
                       for k in ("ldpc_ms", "ldpc_iter_us", "mf_ms",
-                                "gardner_ms", "gardner_sps4_ms")}
+                                "gardner_ms", "gardner_sps4_ms", "bch_ms",
+                                "bch_clean_ms")}
                for root in args.roots}
     print(json.dumps({"runs": summary,
                       "same_outputs": len({x["digest"] for x in runs}) == 1}))

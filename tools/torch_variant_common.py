@@ -1,8 +1,9 @@
 """What the kernel-variant tools share: a parallel nvcc build of text-edited
 copies of a kernel source, and timing in turns.
 
-``tools/torch_mf_variants.py`` and ``tools/torch_gardner_variants.py``
-import it (they run as scripts, so this directory is on their path).
+``tools/torch_mf_variants.py``, ``tools/torch_gardner_variants.py`` and
+``tools/torch_bch_variants.py`` import it (they run as scripts, so this
+directory is on their path).
 """
 
 import ctypes
