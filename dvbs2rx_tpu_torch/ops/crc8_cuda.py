@@ -4,9 +4,10 @@ The JAX ``packet_validity`` (``dvbs2rx_tpu/ops/crc8_dev.py:103-130``) is XLA
 code, with no Pallas kernel: a Kogge-Stone scan of constant 8x8 GF(2)
 matrices. Its plain PyTorch version (``crc8_dev.packet_validity_plain``)
 turns every matrix row into XOR launches, ~354 per call. One launch of
-``csrc/crc8.cu`` computes the same map: its source note says how, and what
-bounds it. ``tables`` gives the kernel its CRC table and the table of an
-outgoing byte's share of a window's CRC.
+``csrc/crc8.cu`` computes the same map as a scan of run CRCs: its source
+note says how, and what bounds it. ``tables`` gives the kernel its 18
+byte tables and its lane table, each a power of the one-byte state
+advance M (``power``); ``threads`` is its block size for a row of n bytes.
 
 Dispatch is by the tensor's device: CPU tensors take the plain version;
 CUDA tensors launch the kernel or raise.
@@ -31,21 +32,51 @@ def _reset_counts():
 
 _build.register_counter("crc8_validity", lambda: LAUNCHES, _reset_counts)
 
-# csrc/crc8.cu's limits: a row of at most THREADS x RUN bytes, and a window
-# of at most MAX_WINDOW bytes
-THREADS, RUN, MAX_WINDOW = 256, 32, 255
-MAX_N = THREADS * RUN
+# csrc/crc8.cu's constants: RUN bytes a thread, at most MAX_THREADS
+# threads a block (so a row of at most MAX_N bytes), a window of at most
+# MAX_WINDOW bytes, PAD zero prefix CRCs before the row, LEVELS scan levels
+# (5 within a warp, 4 over the warps); the 256-byte rows of its table: U_k
+# (k < 4), P_g (g < 4), Z, A_k (k < LEVELS); then C, (256, 32)
+RUN, MAX_THREADS, MAX_WINDOW, PAD, LEVELS = 16, 512, 255, 256, 9
+MAX_N = MAX_THREADS * RUN
+ROW_U, ROW_P, ROW_Z, ROW_A = 0, 4, 8, 9
+N_TABLES = ROW_A + LEVELS
+
+
+def threads(n: int) -> int:
+    """The kernel's block size for rows of n bytes: one thread a run of RUN
+    bytes, rounded up to whole warps."""
+    runs = -(-n // RUN)
+    return -(-runs // 32) * 32
+
+
+def power(e: int) -> np.ndarray:
+    """(256,) uint8: M^e, the CRC state after e zero bytes from state x
+    (M[x] = T[x], the CRC table: CRC-8 with init 0 is linear)."""
+    T = crc8_table()
+    R = np.arange(256, dtype=np.uint8)
+    while e:
+        if e & 1:
+            R = T[R]
+        T = T[T]
+        e >>= 1
+    return R
 
 
 @functools.lru_cache(maxsize=4)
 def tables(window: int) -> np.ndarray:
-    """(512,) uint8: the CRC-8 table T, then Z[x] = the CRC of byte x
-    followed by ``window`` zero bytes."""
+    """(N_TABLES * 256 + 256 * 32,) uint8, the kernel's tables in its
+    order: U_k = M^k T (the CRC of a byte followed by k zero bytes, slicing
+    by 4), P_g = M^(4g + 4) (a run's prefix at byte 4g + 3), Z = M^window
+    (the outgoing byte's share of a window), A_k = M^(RUN 2^k) (scan level
+    k); then C[v, l] = M^(RUN l) v for the 32 lanes l (a lane's share of
+    the state after the warps before its own)."""
     T = crc8_table()
-    Z = T.copy()
-    for _ in range(window):
-        Z = T[Z]
-    return np.concatenate([T, Z])
+    rows = ([power(k)[T] for k in range(4)]
+            + [power(4 * g + 4) for g in range(4)] + [power(window)]
+            + [power(RUN << k) for k in range(LEVELS)])
+    C = np.stack([power(RUN * lane) for lane in range(32)], axis=1)
+    return np.concatenate([np.stack(rows).reshape(-1), C.reshape(-1)])
 
 
 def crc8_validity(frames_u8, window: int = 187):

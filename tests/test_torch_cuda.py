@@ -1293,34 +1293,90 @@ def test_fec_tail_wrappers_raise_on_what_the_kernels_do_not_take(card):
         crc8_cuda.crc8_validity(frames.t().contiguous().t())
 
 
-@pytest.mark.parametrize("n", [879, 883, 4026, 4836, 7274])
-def test_crc8_kernel_matches_plain(card, n):
-    """Random bytes at n (no n is a multiple of 8, so every row has pad
-    bits), a row of zeros, and Tx BBFRAMEs of the code whose frames have n
-    bytes."""
-    rng = np.random.default_rng(n)
-    frames = rng.integers(0, 256, (37, n), dtype=np.uint8)
+def _crc8_frames(B, n, window, rng):
+    """B rows of n random bytes: row 0 all zeros, row 1 a zero prefix of
+    300 bytes, row 2 (B > 2) packets of ``window`` bytes each followed by
+    its CRC-8, so that most of its windows are valid."""
+    from dvbs2rx_tpu_torch.spec.scramblers import crc8_table
+
+    frames = rng.integers(0, 256, (B, n), dtype=np.uint8)
     frames[0] = 0
-    x = torch.from_numpy(frames).to(card)
+    if B > 1:
+        frames[1, :300] = 0
+    if B > 2:
+        T = crc8_table()
+        for p in range(window, n, window + 1):
+            rem = 0
+            for v in frames[2, p - window:p]:
+                rem = int(T[rem ^ int(v)])
+            frames[2, p] = rem
+    return frames
+
+
+@pytest.mark.parametrize("window", [1, 187, 255])
+@pytest.mark.parametrize("B", [1, 2, 37, 128])
+@pytest.mark.parametrize("n", [879, 883, 4026, 4836, 7274])
+def test_crc8_kernel_matches_plain(card, n, B, window):
+    """Random bytes at n (no n is a multiple of 8, so every row has pad
+    bits), a row of zeros, a zero-prefixed row, a row of valid windows,
+    and at window 187 Tx BBFRAMEs of the code whose frames have n bytes."""
+    rng = np.random.default_rng(n * 1000 + B + window)
+    x = torch.from_numpy(_crc8_frames(B, n, window, rng)).to(card)
     before = crc8_cuda.LAUNCHES
-    got = packet_validity(x)
+    got = packet_validity(x, window)
     assert crc8_cuda.LAUNCHES == before + 1
-    want = packet_validity_plain(x)
+    want = packet_validity_plain(x, window)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if window != 187:
+        return
     for modcod, fs in (("qpsk1/2", "normal"), ("8psk3/5", "normal"),
                        ("qpsk1/2", "short")):
         tx = Transmitter(TxConfig(modcod=modcod, frame_size=fs))
         if tx.kbch_bytes != n:
             continue
-        pkts = rng.integers(0, 256, (6 * tx.df_bytes // 188 + 2, 188),
+        pkts = rng.integers(0, 256, (B * tx.df_bytes // 188 + 2, 188),
                             dtype=np.uint8)
         pkts[:, 0] = 0x47
         tx_frames = torch.from_numpy(np.ascontiguousarray(
-            tx.bbframes(pkts.reshape(-1))[:5] ^ tx.bb_scramble)).to(card)
+            tx.bbframes(pkts.reshape(-1))[:B] ^ tx.bb_scramble)).to(card)
         got = packet_validity(tx_frames)
         want = packet_validity_plain(tx_frames)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert bool(want[1].all())
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+def test_crc8_kernel_misaligned_rows_and_graph(card, offset):
+    """Rows that start at an odd byte offset of their allocation (a
+    contiguous view into a larger buffer, so no row is 16-byte aligned):
+    the kernel equals the plain version eagerly and in a captured CUDA
+    graph, replayed on new bytes copied into the captured input."""
+    rng = np.random.default_rng(offset)
+    B, n = 37, 4026
+    buf = torch.zeros(B * n + 64, dtype=torch.uint8, device=card)
+    x = buf[offset:offset + B * n].view(B, n)
+    assert x.is_contiguous() and x.data_ptr() % 16 == offset
+    x.copy_(torch.from_numpy(_crc8_frames(B, n, 187, rng)))
+    got = packet_validity(x)
+    want = packet_validity_plain(x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        packet_validity(x)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    before = crc8_cuda.LAUNCHES
+    with torch.cuda.graph(g):
+        out = packet_validity(x)
+    assert crc8_cuda.LAUNCHES == before + 1
+    for seed in (1, 2):
+        x.copy_(torch.from_numpy(_crc8_frames(
+            B, n, 187, np.random.default_rng(100 * offset + seed))))
+        g.replay()
+        want = packet_validity_plain(x)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    assert crc8_cuda.LAUNCHES == before + 1
 
 
 def test_scan_step_counts_the_fec_tail_kernels_at_capture(card):

@@ -20,7 +20,7 @@ its plain prefix scan (``ops/crc8_cuda.py``). These tests hold them to
 
 Exact throughout: every output is an integer. The kernels cannot run here
 (no nvcc, no card), so the numpy mirrors below repeat what they compute
-(the sliding window CRC of ``csrc/crc8.cu``; the locator kernel's
+(the scan of run CRCs of ``csrc/crc8.cu``; the locator kernel's
 syndrome stage, chunked and staged as the kernel splits the positions,
 and its Berlekamp-Massey rounds in the log domain with the Zech table; the
 log-domain Chien evaluation of ``csrc/bch.cu``) against the plain versions
@@ -210,30 +210,139 @@ def test_packet_validity_matches_jax(modcod, frame_size, n):
         assert got_hdr.numpy()[:3].all()
 
 
-def test_crc8_kernel_arithmetic_mirrored():
-    """csrc/crc8.cu's recurrence: runs of 32 positions, the first window's
-    CRC by table steps, then rem' = T[rem ^ b[p]] ^ Z[b[p - W]] with the
-    wrapper's Z table, against the plain version."""
-    rng = np.random.default_rng(3)
-    frames = rng.integers(0, 256, (3, 883), dtype=np.uint8)
-    frames[0, :200] = 0
-    W, run = 187, crc8_cuda.RUN
-    tab = crc8_cuda.tables(W).astype(np.int64)
-    T, Z = tab[:256], tab[256:]
+def _crc8_kernel_mirror(frames, window):
+    """csrc/crc8.cu's arithmetic in numpy, from the wrapper's tables
+    (``crc8_cuda.tables``) and constants: each thread's run of RUN bytes
+    (zero past the row), its local CRCs at bytes 3, 7, 11, 15 by slicing by
+    4 (U_k); the Kogge-Stone scan of the run states within each warp of 32
+    runs with A_0..A_4 (a lane below the step takes nothing, as a shuffle
+    gives it), the warps' totals scanned with A_5..A_8, and the state
+    before each run, the warp-local one plus C[the warps before, lane];
+    the prefix S at bytes 4g + 3 from P_g and the rest by T steps, then
+    the window test S[p-1] ^ Z[S[p-W-1]] == b[p] over PAD zero prefix
+    CRCs, and hdr_ok = S[8] == b[9]."""
+    rows = crc8_cuda.N_TABLES * 256
+    flat = crc8_cuda.tables(window).astype(np.int64)
+    tab = flat[:rows].reshape(crc8_cuda.N_TABLES, 256)
+    Cl = flat[rows:].reshape(256, 32)
+    U = tab[crc8_cuda.ROW_U:crc8_cuda.ROW_U + 4]
+    P = tab[crc8_cuda.ROW_P:crc8_cuda.ROW_P + 4]
+    Z, A = tab[crc8_cuda.ROW_Z], tab[crc8_cuda.ROW_A:]
+    run = crc8_cuda.RUN
     B, n = frames.shape
-    buf = np.concatenate([np.zeros((B, W), np.int64), frames,
-                          np.zeros((B, run), np.int64)], axis=1)
-    ok = np.zeros((B, n), bool)
-    for p0 in range(0, n, run):
-        rem = np.zeros(B, np.int64)
-        for k in range(W):
-            rem = T[rem ^ buf[:, p0 + k]]
-        for p in range(p0, min(p0 + run, n)):
-            ok[:, p] = rem == buf[:, p + W]
-            rem = T[rem ^ buf[:, p + W]] ^ Z[buf[:, p]]
-    want, _ = crc8_dev.packet_validity_plain(torch.from_numpy(frames))
-    np.testing.assert_array_equal(
-        np.packbits(ok, axis=1, bitorder="little"), want.numpy())
+    nt = crc8_cuda.threads(n)
+    assert nt % 32 == 0 and nt <= crc8_cuda.MAX_THREADS
+    runs = -(-n // run)
+    b = np.zeros((B, nt * run), np.int64)
+    b[:, :n] = frames
+    b = b.reshape(B, nt, run)
+    s = np.zeros((B, nt), np.int64)
+    L = []
+    for g in range(4):
+        s = (U[3][s ^ b[..., 4 * g]] ^ U[2][b[..., 4 * g + 1]]
+             ^ U[1][b[..., 4 * g + 2]] ^ U[0][b[..., 4 * g + 3]])
+        L.append(s)
+    lane = np.arange(nt) % 32
+    e = s
+    for k in range(5):
+        d = 1 << k
+        if d >= runs:
+            break
+        back = np.zeros_like(e)
+        back[:, d:] = e[:, :-d]
+        e = np.where(lane >= d, e ^ A[k][back], e)
+    x = np.zeros_like(e)
+    x[:, 1:] = e[:, :-1]
+    x[:, lane == 0] = 0
+    warps = nt // 32
+    if warps > 1:
+        w = e[:, 31::32]
+        for k in range(4):
+            d = 1 << k
+            if d >= warps:
+                break
+            back = np.zeros_like(w)
+            back[:, d:] = w[:, :-d]
+            w = np.where(np.arange(warps) >= d, w ^ A[5 + k][back], w)
+        before = np.repeat(w, 32, axis=1)[:, :-32]
+        x[:, 32:] ^= Cl[before, lane[32:]]
+    S = np.zeros((B, nt, run), np.int64)
+    for g in range(4):
+        S[..., 4 * g + 3] = L[g] ^ P[g][x]
+    for g in range(4):
+        prev = S[..., 4 * g - 1] if g else x
+        for m in range(3):
+            prev = U[0][prev ^ b[..., 4 * g + m]]
+            S[..., 4 * g + m] = prev
+    pad = crc8_cuda.PAD
+    flat = np.concatenate([np.zeros((B, pad), np.int64), S.reshape(B, -1)], 1)
+    p = np.arange(nt * run)
+    old = flat[:, pad + p - window - 1]
+    prev = np.concatenate([x[..., None], S[..., :-1]], -1).reshape(B, -1)
+    ok = ((prev ^ Z[old]) == b.reshape(B, -1)) & (p < n)
+    hdr = (S[:, 0, 8] == b[:, 0, 9]).astype(np.int32)
+    return np.packbits(ok[:, :n], axis=1, bitorder="little"), hdr
+
+
+def _crc8_rows(n, window, rng):
+    """Three rows of n bytes: random bytes; a zero prefix of 300 bytes
+    before random ones; and packets of ``window`` random bytes, each
+    followed by the CRC-8 of those bytes (so most windows are valid)."""
+    frames = rng.integers(0, 256, (3, n), dtype=np.uint8)
+    frames[1, :300] = 0
+    T = crc8_table()
+    for p in range(window, n, window + 1):
+        rem = 0
+        for v in frames[2, p - window:p]:
+            rem = int(T[rem ^ int(v)])
+        frames[2, p] = rem
+    return frames
+
+
+@pytest.mark.parametrize("window", [1, 187, 255])
+@pytest.mark.parametrize("n", [10, 879, 4026, 7274, 8192])
+def test_crc8_kernel_arithmetic_mirrored(n, window):
+    """csrc/crc8.cu's scan of run CRCs (``_crc8_kernel_mirror``) against
+    the plain version and the JAX packet_validity, bit for bit."""
+    frames = _crc8_rows(n, window, np.random.default_rng(n + window))
+    got = _crc8_kernel_mirror(frames, window)
+    want = crc8_dev.packet_validity_plain(torch.from_numpy(frames), window)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    jwant = jcrc.packet_validity(jnp.asarray(frames), window)
+    np.testing.assert_array_equal(got[0], np.asarray(jwant[0]))
+    np.testing.assert_array_equal(got[1], np.asarray(jwant[1]))
+    if n > window:
+        assert np.unpackbits(got[0][2], bitorder="little")[
+            window:n:window + 1].all()
+
+
+def test_crc8_tables_are_powers_of_the_byte_advance():
+    """crc8_cuda.tables: every row the power of M its name says, checked
+    by stepping the CRC table one zero byte at a time."""
+    T = crc8_table()
+
+    def steps(e):
+        R = np.arange(256, dtype=np.uint8)
+        for _ in range(e):
+            R = T[R]
+        return R
+
+    flat = crc8_cuda.tables(187)
+    tab = flat[:crc8_cuda.N_TABLES * 256].reshape(crc8_cuda.N_TABLES, 256)
+    Cl = flat[crc8_cuda.N_TABLES * 256:].reshape(256, 32)
+    for lane in range(32):
+        np.testing.assert_array_equal(Cl[:, lane], steps(crc8_cuda.RUN * lane))
+    for k in range(4):
+        np.testing.assert_array_equal(tab[crc8_cuda.ROW_U + k], steps(k)[T])
+        np.testing.assert_array_equal(tab[crc8_cuda.ROW_P + k],
+                                      steps(4 * k + 4))
+    np.testing.assert_array_equal(tab[crc8_cuda.ROW_Z], steps(187))
+    for k in range(crc8_cuda.LEVELS):
+        np.testing.assert_array_equal(tab[crc8_cuda.ROW_A + k],
+                                      steps(crc8_cuda.RUN << k))
+    assert [crc8_cuda.threads(n) for n in (10, 879, 4026, 7274, 8192)] == \
+        [32, 64, 256, 480, 512]
 
 
 def _u32(x):

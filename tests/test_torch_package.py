@@ -60,10 +60,12 @@ def test_every_module_imports_without_jax():
               "ops.crc8_cuda"):
         assert "dvbs2rx_tpu_torch." + m in mods
     # the port's tools and examples, loaded from their files
-    files = ["tools/torch_iqrec.py", "examples/torch_loopback_sim.py",
+    files = ["tools/torch_iqrec.py", "tools/torch_ber_sweep.py",
+             "tools/torch_crc8_variants.py", "examples/torch_loopback_sim.py",
              "examples/torch_pl_sync_demo.py"]
     code = (
         "import importlib, importlib.util, sys\n"
+        "sys.path.insert(0, 'tools')\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         f"for i, f in enumerate({files!r}):\n"

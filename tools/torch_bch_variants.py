@@ -48,42 +48,16 @@ import sys
 import time
 from pathlib import Path
 
-from torch_variant_common import ROOT, apply_edits, build, time_in_turns
+from torch_variant_common import (
+    ROOT,
+    apply_edits,
+    build,
+    read_stamps,
+    stamps_prelude,
+    time_in_turns,
+)
 
-PRELUDE = r'''
-__device__ unsigned long long g_stamps[64];
-__device__ __forceinline__ long long stamp_now(int dep) {
-  int sink;
-  long long t;
-  asm volatile("add.s32 %0, %1, 0;" : "=r"(sink) : "r"(dep));
-  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) :: "memory");
-  return t;
-}
-__device__ __forceinline__ unsigned long long stamp_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");
-  return t;
-}
-#define STAMP(slot, dep) do { const long long _t = stamp_now((int)(dep)); \
-  stamp_acc[slot] += _t - t_last; t_last = _t; } while (0)
-#define STAMP_DECL long long stamp_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0}; \
-  long long t_last = clock64(); unsigned long long ns0 = stamp_ns();
-#define STAMP_RESET do { for (int _j = 0; _j < 8; ++_j) stamp_acc[_j] = 0; \
-  t_last = clock64(); ns0 = stamp_ns(); } while (0)
-#define STAMPS_FLUSH(slot0) do { stamp_acc[7] = stamp_ns() - ns0; \
-  stamps_flush(stamp_acc, slot0); } while (0)
-__device__ __forceinline__ void stamps_flush(const long long* acc, int slot0) {
-  for (int j = 0; j < 8; ++j)
-    atomicAdd(&g_stamps[slot0 + j], (unsigned long long)acc[j]);
-  atomicAdd(&g_stamps[slot0 + 8], 1ull);
-}
-extern "C" int bch_stamps(void* out) {
-  static const unsigned long long zero[64] = {};
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_stamps, sizeof(zero));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_stamps, zero, sizeof(zero));
-  return (int)e;
-}
-'''
+PRELUDE = stamps_prelude("bch_stamps")
 INCLUDE = "#include <stdint.h>\n"
 
 # phases (slot: name); the count of stamped units sits at slot0 + 8
@@ -399,25 +373,6 @@ def new_calls(lib, dec, bits_t):
     return decode, {"locator": locator, "chien": lambda: chien(*loc)}
 
 
-def read_stamps(lib, run, phases):
-    import torch
-
-    buf = (ctypes.c_ulonglong * 64)()
-    lib.bch_stamps(buf)                 # clear
-    run()
-    torch.cuda.synchronize()
-    if lib.bch_stamps(buf):
-        raise RuntimeError("reading the stamps failed")
-    out = {}
-    for slot, what in phases.items():
-        n = buf[(slot // 16) * 16 + 8]
-        out[what] = {"cycles": buf[slot] / max(n, 1), "units": n}
-    for g in sorted({slot // 16 * 16 for slot in phases}):
-        cyc = sum(buf[g + k] for k in range(7))
-        out[f"group {g}: cycles per ns"] = cyc / max(buf[g + 7], 1)
-    return out
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("names", nargs="*")
@@ -457,7 +412,8 @@ def main():
              "ms": {}}
         if "stamps" in name:
             phases = STAMPS_BASE if VARIANTS[name][0] == "base" else STAMPS_NEW
-            r["cycles_by_phase"] = read_stamps(lib, decode, phases)
+            r["cycles_by_phase"] = read_stamps(lib.bch_stamps, decode,
+                                                  phases)
         r["device_ms"] = {
             part: chip_smoke._profiled_device_ms(fn, KERNELS[part])
             for part, fn in parts.items()}

@@ -24,7 +24,12 @@ them on ``chip_smoke.py``'s inputs with its timer (``_time_ms``: median of
   syndrome matmul and two kernels before the locator, the locator and
   Chien after); ``bch_clean_ms`` the default form on a clean batch (the
   syndromes and the all-clean readback); null for a checkout without the
-  BCH kernels.
+  BCH kernels;
+* ``crc8_ms``: ``crc8_cuda.crc8_validity`` on phase 11's S2_B4 Tx
+  BBFRAMEs (``_crc_inputs`` with seed 2032, B = 128, n = 4,026, window
+  187), and ``crc8_device_ms`` its ``torch.profiler`` device time (mean
+  over 20 launches: an event timing of one small launch is the host's
+  enqueue rate); null for a checkout without the CRC-8 kernel.
 
 It prints one JSON line per run, with a digest of the LDPC case's four
 outputs, and a last line with each checkout's times and whether every
@@ -92,8 +97,29 @@ def child(root: str):
     print(json.dumps({
         "root": root, "ldpc_ms": ldpc_ms,
         "ldpc_iter_us": (per_trials[4] - per_trials[0]) / 4 * 1e3,
-        "mf_ms": mf_ms, **gardner, **_bch_times(h),
+        "mf_ms": mf_ms, **gardner, **_bch_times(h), **_crc8_times(h),
         "digest": h.hexdigest()[:16]}))
+
+
+def _crc8_times(h):
+    """The CRC-8 kernel of the checkout on phase 11's S2_B4 Tx BBFRAMEs:
+    CUDA events and the profiler's device time."""
+    import numpy as np
+
+    import chip_smoke
+
+    try:
+        from dvbs2rx_tpu_torch.ops import crc8_cuda
+    except ImportError:     # a checkout from before the CRC-8 kernel
+        return {"crc8_ms": None, "crc8_device_ms": None}
+    frames = chip_smoke._crc_inputs(
+        np.random.default_rng(2032))["tx_qpsk1/2_normal"]
+    for t in crc8_cuda.crc8_validity(frames):
+        h.update(t.cpu().numpy().tobytes())
+    fn = (lambda: crc8_cuda.crc8_validity(frames))
+    return {"crc8_ms": chip_smoke._time_ms(fn),
+            "crc8_device_ms": chip_smoke._profiled_device_ms(
+                fn, "crc8_validity_kernel")}
 
 
 def _bch_times(h):
@@ -151,7 +177,7 @@ def main():
     summary = {root: {k: [x[k] for x in runs if x["root"] == root]
                       for k in ("ldpc_ms", "ldpc_iter_us", "mf_ms",
                                 "gardner_ms", "gardner_sps4_ms", "bch_ms",
-                                "bch_clean_ms")}
+                                "bch_clean_ms", "crc8_ms", "crc8_device_ms")}
                for root in args.roots}
     print(json.dumps({"runs": summary,
                       "same_outputs": len({x["digest"] for x in runs}) == 1}))
