@@ -32,11 +32,19 @@ from .. import _build
 
 # kernel launches by kernel; incremented only where a kernel runs
 LAUNCHES = {"bch_locator": 0, "bch_chien": 0}
+LAUNCH_SHAPES = {}  # the same launches by (kernel, t, nbch, ord, B)
 
 
 def _reset_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def _count(kernel, t, nbch, ordn, B):
+    LAUNCHES[kernel] += 1
+    key = (kernel, t, nbch, ordn, B)
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
 for _k in LAUNCHES:
@@ -140,7 +148,7 @@ def locator(bits, odd, exp16, log16, zech16, scratch, t, nbch, ordn):
     _, chunks = locator_plan(B, nbch, _n_sm(dev))
     _launch_locator(_build.lib(), bits, odd, exp16, log16, zech16, S, sigma,
                     L, scratch, t, nbch, ordn, chunks)
-    LAUNCHES["bch_locator"] += 1
+    _count("bch_locator", t, nbch, ordn, B)
     return S, sigma, L
 
 
@@ -188,7 +196,7 @@ def chien_correct(bits, S, sigma, L, exp16, log, t, nbch, ordn):
         return out, n_corr
     _launch_chien(_build.lib(), S, sigma, L, exp16, log, out, n_corr, t,
                   nbch, ordn)
-    LAUNCHES["bch_chien"] += 1
+    _count("bch_chien", t, nbch, ordn, B)
     return out, n_corr
 
 

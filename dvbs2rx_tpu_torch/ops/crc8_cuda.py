@@ -23,11 +23,13 @@ from ..spec.scramblers import crc8_table
 from ..utils.runtime import device_table
 
 LAUNCHES = 0     # kernel launches; incremented only where the kernel runs
+LAUNCH_SHAPES = {}  # the same launches by (B, n)
 
 
 def _reset_counts():
     global LAUNCHES
     LAUNCHES = 0
+    LAUNCH_SHAPES.clear()
 
 
 _build.register_counter("crc8_validity", lambda: LAUNCHES, _reset_counts)
@@ -111,4 +113,5 @@ def crc8_validity(frames_u8, window: int = 187):
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "crc8_validity_kernel")
     LAUNCHES += 1
+    LAUNCH_SHAPES[(B, n)] = LAUNCH_SHAPES.get((B, n), 0) + 1
     return ok, hdr_ok

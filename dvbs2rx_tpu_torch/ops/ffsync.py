@@ -74,6 +74,7 @@ class FeedForwardSync:
 
     ``step_batched(states, samples, n_out)``: samples (C, n, 2) planar at
     sps/T; returns (states', symbols (C, n_out, 2), consumed (C,) int32).
+    ``step(state, samples, n_out)``: the same for one stream, (n, 2).
     """
 
     def __init__(self, sps=2, rolloff=0.2, rrc_delay=5, n_subfilt=128,
@@ -107,11 +108,15 @@ class FeedForwardSync:
     def history(self) -> int:
         return self._history
 
-    def init_state(self, n_channels: int) -> FFSyncState:
-        z = torch.zeros((n_channels,), dtype=torch.float32, device=self.device)
+    def init_state(self, n_channels: int = None) -> FFSyncState:
+        """Zero state of (C,) leaves, or of 0-dim leaves for one stream
+        (``n_channels=None``, the JAX ``init_state()`` that ``step``
+        takes)."""
+        shape = () if n_channels is None else (n_channels,)
+        z = torch.zeros(shape, dtype=torch.float32, device=self.device)
         return FFSyncState(
             tau=z, rate=z.clone(),
-            initialized=torch.zeros((n_channels,), dtype=torch.int32,
+            initialized=torch.zeros(shape, dtype=torch.int32,
                                     device=self.device),
         )
 
@@ -253,3 +258,16 @@ class FeedForwardSync:
             syms = mf_segmented(samples, taps_seg, off_seg, self.sps,
                                 n_out // S, self._off)
         return new_states, syms, consumed
+
+    def step(self, state: FFSyncState, samples, n_out: int):
+        """Single-stream step (the JAX ``step``): state of 0-dim leaves
+        (``init_state()``), samples (n, 2) float32 (a tensor or numpy) ->
+        (state' of 0-dim leaves, symbols (n_out, 2), consumed 0-dim int32).
+        ``step_batched`` on a channel axis of 1."""
+        samples = torch.as_tensor(samples, dtype=torch.float32,
+                                  device=self.device)
+        st = FFSyncState(*(x.reshape(1) for x in (
+            state.tau, state.rate, state.initialized)))
+        new, syms, consumed = self.step_batched(st, samples[None], n_out)
+        return (FFSyncState(new.tau[0], new.rate[0], new.initialized[0]),
+                syms[0], consumed[0])

@@ -1400,3 +1400,36 @@ def test_scan_step_counts_the_fec_tail_kernels_at_capture(card):
     counts = {k: sum(e.count for e in prof.key_averages()
                      if k + "_kernel" in e.key) for k in fec_tail}
     assert counts == dict.fromkeys(fec_tail, 2)
+
+
+def test_ffsync_single_stream_step_on_card_matches_cpu(card):
+    from dvbs2rx_tpu_torch.ops.ffsync import FeedForwardSync
+
+    n_out = 8192
+    n = 2 * n_out + FeedForwardSync(sps=2, device="cpu").history()
+    x = np.random.default_rng(13).normal(size=(n, 2)).astype(np.float32)
+    outs = []
+    for dev in ("cpu", card):
+        sync = FeedForwardSync(sps=2, device=dev)
+        st, syms, cons = sync.step(sync.init_state(), x, n_out)
+        assert st.tau.shape == () and syms.shape == (n_out, 2)
+        outs.append((syms.cpu().numpy(), int(cons), float(st.tau)))
+    (s0, c0, t0), (s1, c1, t1) = outs
+    assert c0 == c1
+    np.testing.assert_allclose(s1, s0, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t1, t0, rtol=1e-4)
+
+
+def test_bench_sections_on_card_at_a_small_width(card):
+    from dvbs2rx_tpu_torch import bench
+
+    before = launch_counts()
+    fe = bench.measure_frontend(2, device="cuda")
+    gf = bench.measure_group_fec(2, 2, device="cuda", frame_size="short")
+    after = launch_counts()
+    assert fe["frontend_ok"] and gf["group_fec_ok"], (fe, gf)
+    assert gf["bch_frame_errors"] == 0 and gf["post_fec_ber"] == 0.0
+    assert fe["frontend_launches_per_step"]["mf_segmented"] == 1
+    assert gf["group_fec_launches_per_step"]["ldpc_layered"] == 1
+    assert after["mf_segmented"] > before["mf_segmented"]
+    assert isinstance(gf["group_fec_host_syncs_per_step"], int)

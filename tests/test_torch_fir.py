@@ -110,6 +110,7 @@ def _item_windows(plan, C, S, seg_len, L, sps, base_seg, off_bound, n):
 # segment, the longest filter, the generic sps
 PLAN_SHAPES = [
     (64, 15, 4332, 21, 2),
+    (64, 16, 2048, 21, 2),      # the bench's front end (32,768 symbols)
     (3, 15, 333, 21, 2),
     (2, 4, 1025, 37, 2),
     (2, 3, 7, 21, 2),
@@ -172,6 +173,16 @@ def test_launch_plan_at_the_main_path_shape():
     plan = fir_cuda.launch_plan(64, 15, 4332, 21, 2)
     assert (plan.lmax, plan.chunk, plan.n_chunks, plan.items) == \
         (24, 868, 5, 4800)
+    assert plan.smem_bytes == 46_688 < 48 * 1024
+
+
+def test_launch_plan_at_the_bench_front_end_shape():
+    """``FeedForwardSync.step_batched`` at the bench's 32,768-symbol
+    block: 64 channels x 16 segments x 2,048 symbols, 21 taps (bucket 24),
+    two whole chunks of 1,024 per segment."""
+    plan = fir_cuda.launch_plan(64, 16, 2048, 21, 2)
+    assert (plan.lmax, plan.chunk, plan.n_chunks, plan.items) == \
+        (24, 1024, 2, 2048)
     assert plan.smem_bytes == 46_688 < 48 * 1024
 
 

@@ -57,11 +57,12 @@ def test_every_module_imports_without_jax():
     for m in ("apps.dvbs2_rx", "apps.dvbs2_tx", "apps.dvbs2_rec",
               "ops.encode", "io.iq", "utils.params", "parallel.mesh",
               "parallel.stream_shard", "parallel.vcm_shard", "ops.bch_cuda",
-              "ops.crc8_cuda"):
+              "ops.crc8_cuda", "bench"):
         assert "dvbs2rx_tpu_torch." + m in mods
     # the port's tools and examples, loaded from their files
     files = ["tools/torch_iqrec.py", "tools/torch_ber_sweep.py",
-             "tools/torch_crc8_variants.py", "examples/torch_loopback_sim.py",
+             "tools/torch_crc8_variants.py", "tools/torch_microbench.py",
+             "tools/torch_scaling_bench.py", "examples/torch_loopback_sim.py",
              "examples/torch_pl_sync_demo.py"]
     code = (
         "import importlib, importlib.util, sys\n"

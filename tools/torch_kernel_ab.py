@@ -160,9 +160,9 @@ def main():
     if args.child:
         return child(args.child)
     sys.path.insert(0, str(ROOT))
-    import chip_smoke
+    from dvbs2rx_tpu_torch import bench
 
-    print(chip_smoke._smi(), flush=True)
+    print(bench.smi(), flush=True)
     runs = []
     for _ in range(args.rounds):
         for root in args.roots + args.roots[::-1]:

@@ -58,6 +58,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+    from dvbs2rx_tpu_torch import bench
     from dvbs2rx_tpu_torch.ops import cplx
     from dvbs2rx_tpu_torch.rx.receiver import RxConfig
     from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
@@ -65,7 +66,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch_profile_step needs a CUDA card")
-    print(chip_smoke._smi(), flush=True)
+    print(bench.smi(), flush=True)
     if args.path.startswith("host-"):
         return _host_profile(args.path)
     if args.path == "ccm":
