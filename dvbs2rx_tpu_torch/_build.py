@@ -45,6 +45,7 @@ _SIGNATURES = {
     "mf_segmented_grid_blocks": [_I] * 2,
     "ldpc_layered_launch": [_P] * 6 + [_I] * 8 + [_P],
     "ldpc_layered_smem_bytes": [_I] * 4,
+    "vcm_walk_launch": [_P] * 18 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

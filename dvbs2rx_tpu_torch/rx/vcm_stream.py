@@ -13,7 +13,8 @@ decides where the next frame starts, so one step composes:
   window at the predicted start of the next frame, a 3-point
   early/on-time/late metric, the PLSC decode (differential until the coarse
   CFO is corrected, then ``cfg.plsc_mode``), and the PLS -> frame length
-  table;
+  table; on the card one launch of ``csrc/vcm_walk.cu`` a step
+  (``ops.vcm_walk_cuda``), on the CPU the plain loop ``_walk_plain``;
 - per expected PLS, the lane program (descramble, fine CFO, phase
   correction, SNR, demap) over every lane, and a selection by decoded PLS;
 - lock upkeep, full-PLHEADER coarse CFO and the closed-loop rotator;
@@ -58,6 +59,7 @@ from ..ops.demap import (
 )
 from ..ops.ffsync import FeedForwardSync
 from ..ops.frontend import rotate_block
+from ..ops.vcm_walk_cuda import vcm_walk
 from ..spec.bb_frame import BBFrameParser
 from ..spec.fec_params import DVBS2_MODCODS as _MODCODS
 from ..spec.fec_params import get_fec_info
@@ -289,7 +291,20 @@ class VCMStreamReceiver(StreamFrontEnd):
         """Decoded-PLS chain walk over K_max slots. Returns the slots
         (dict of (K, C, ...) tensors: pos, pls, valid, own_hdr, metric,
         next_pls, next_hdr), the carry's fp_right and PLS, and the number
-        of frames walked per channel."""
+        of frames walked per channel. On the card one launch of
+        ``csrc/vcm_walk.cu`` (``ops.vcm_walk_cuda``); CPU tensors take the
+        plain loop, ``_walk_plain``."""
+        if not state["symbuf"].is_cuda:
+            return self._walk_plain(state)
+        return vcm_walk(state["symbuf"], state["fp_right"], state["symfill"],
+                        state["pls"], state["coarse_corrected"],
+                        self._search_mask, self.K_max, self.L_max,
+                        self.cfg.plsc_mode)
+
+    def _walk_plain(self, state):
+        """``_walk`` as a loop of PyTorch operations, slot by slot: the
+        kernel's plain version. Once a chain is dead at slot k, the carry
+        is frozen, so slots k + 1 .. K_max - 1 repeat slot k."""
         symbuf = state["symbuf"]
         corrected = state["coarse_corrected"]
         fp0 = self.N_SYM - state["fp_right"].to(torch.int64)

@@ -307,7 +307,8 @@ def test_debug_log_names_no_kernel_launch_on_the_cpu(caplog, capsys,
     shapes = [m for m in msgs if m.startswith("kernel shapes ")]
     assert json.loads(launches[-1].split(" ", 2)[2]) == {
         "mf_segmented": 0, "gardner": 0, "ldpc_layered": 0,
-        "bch_locator": 0, "bch_chien": 0, "crc8_validity": 0}
+        "bch_locator": 0, "bch_chien": 0, "crc8_validity": 0,
+        "vcm_walk": 0}
     assert json.loads(shapes[-1].split(" ", 2)[2]) == {
         "mf_segmented": [], "ldpc_layered": []}
     stats = json.loads(capsys.readouterr().err.strip().splitlines()[-1])

@@ -35,7 +35,8 @@ from dvbs2rx_tpu_torch.ops.ldpc import LDPCDecoder
 from dvbs2rx_tpu_torch.rx.receiver import RxConfig
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
 
-from chip_smoke import _gardner_waveform
+from chip_smoke import (WALK_MODES, WALK_TOL, _gardner_waveform,
+                        _make_vcm_stimulus, _walk_diff, _walk_states)
 
 pytestmark = pytest.mark.cuda
 
@@ -323,6 +324,102 @@ def test_vcm_step_on_card_matches_cpu(card):
     assert fir_cuda.LAUNCHES - launches[0] == T
     assert ldpc_cuda.LAUNCHES - launches[1] == batches
     assert bool(st_g["locked"].all())
+
+
+@functools.lru_cache(maxsize=1)
+def _walk_cases():
+    """chip_smoke's walk cases at C = 64 on phase 6's stimulus (normal PLS
+    17 + 49 at 13 dB), after 4 steps: the stream, coarse_corrected
+    alternating, symfill rising across the channels, first frames at the
+    ring's edges, and a ring of dummy frames with every slot alive."""
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+
+    sr = VCMStreamReceiver(_walk_cfg("coherent-soft"), 64, 2, device="cuda")
+    iq, _, _ = _make_vcm_stimulus(sr, 5, "normal")
+    return _walk_states(sr, iq, warm_steps=4)
+
+
+def _walk_cfg(mode):
+    from dvbs2rx_tpu_torch.spec.pls import make_pls
+
+    return RxConfig(modcod="qpsk1/2", frame_size="normal", acm_vcm=True,
+                    pls_expected=(make_pls(4, False, True),
+                                  make_pls(12, False, True)),
+                    plsc_mode=mode)
+
+
+@pytest.mark.parametrize("mode", WALK_MODES)
+def test_vcm_walk_kernel_matches_plain(card, mode):
+    """The chain walk kernel against its plain loop on the card at C = 64,
+    in each PLSC mode, on every case of ``_walk_cases``: pos, PLS, next
+    PLS, valid, the headers, fp_right, the carried PLS and the frames
+    walked equal; the metric within WALK_TOL (1e-5) of its largest
+    magnitude; one launch per ``_walk``, none by ``_walk_plain``."""
+    from dvbs2rx_tpu_torch.ops import vcm_walk_cuda
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+
+    sr = VCMStreamReceiver(_walk_cfg(mode), 64, 2, device=card)
+    walked = {}
+    for case, state in _walk_cases().items():
+        n0 = vcm_walk_cuda.LAUNCHES
+        got = sr._walk(state)
+        assert vcm_walk_cuda.LAUNCHES == n0 + 1
+        want = sr._walk_plain(state)
+        assert vcm_walk_cuda.LAUNCHES == n0 + 1
+        err, scale = _walk_diff(got, want)
+        assert err <= WALK_TOL * scale
+        walked[case] = got[3].cpu().numpy()
+    assert (walked["dummy"] == sr.K_max).all()
+    assert (walked["stream"] >= 2).all()
+    assert (walked["symfill_partial"] == 0).any()
+    assert (walked["symfill_partial"] > 0).any()
+
+
+def test_vcm_steps_launch_the_walk_kernel_and_never_the_plain_loop(
+        card, monkeypatch):
+    """On the card every VCM step walks through one kernel launch and never
+    through the plain loop."""
+    from dvbs2rx_tpu_torch.ops import vcm_walk_cuda
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+
+    def plain(*args):
+        raise AssertionError("the plain walk ran on the card")
+
+    monkeypatch.setattr(VCMStreamReceiver, "_walk_plain", plain)
+    cfg, iq = _vcm_case([0, 1], 300)
+    sr = VCMStreamReceiver(cfg, 2, 2, fec_lanes=8, device=card)
+    state = sr.prime(iq[:, : sr._n_fe])
+    n0, T = vcm_walk_cuda.LAUNCHES, 3
+    for t in range(T):
+        blk = cplx.from_np(iq[:, sr._n_fe + t * sr.n_in:
+                              sr._n_fe + (t + 1) * sr.n_in]
+                           ).astype(np.float32)
+        state, _, stats = sr.step(state, sr.put_iq(blk))
+    assert vcm_walk_cuda.LAUNCHES == n0 + T
+    assert int(stats["n_walked"].sum()) > 0
+
+
+def test_vcm_walk_wrapper_raises_on_the_card(card):
+    """The kernel's wrapper refuses a non-contiguous ring and mixed
+    devices on the card, and launches nothing then."""
+    from dvbs2rx_tpu_torch.ops import vcm_walk_cuda
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+
+    sr = VCMStreamReceiver(_walk_cfg("coherent-soft"), 64, 2, device=card)
+    state = _walk_cases()["stream"]
+    args = dict(symbuf=state["symbuf"], fp_right=state["fp_right"],
+                symfill=state["symfill"], pls=state["pls"],
+                corrected=state["coarse_corrected"],
+                search_mask=sr._search_mask, K=sr.K_max, L_max=sr.L_max,
+                mode="coherent-soft")
+    n0 = vcm_walk_cuda.LAUNCHES
+    ring = state["symbuf"]
+    for bad in (dict(symbuf=ring.transpose(0, 1).contiguous().transpose(0, 1)),
+                dict(pls=state["pls"].cpu()),
+                dict(search_mask=sr._search_mask.cpu())):
+        with pytest.raises(ValueError):
+            vcm_walk_cuda.vcm_walk(**dict(args, **bad))
+    assert vcm_walk_cuda.LAUNCHES == n0
 
 
 def _assert_vcm_states_close(ours, theirs):
