@@ -42,7 +42,7 @@ import numpy as np
 from .. import __version__
 from .._build import launch_counts
 from ..io.iq import iter_iq
-from ..ops import fir_cuda, ldpc_cuda
+from ..ops import fir_cuda, ldpc_cuda, plsync_cuda
 from ..ops.resample import DeviceResampler
 from ..rx.receiver import RxConfig, make_receiver
 from ..rx.stream import StreamEngine
@@ -469,13 +469,17 @@ def kernel_launches() -> dict:
 
 
 def kernel_shapes() -> dict:
-    """The shapes this process launched the MF and LDPC kernels at, each
-    with its launches: ``[C, n, S, seg_len, L, sps, off_bound, launches]``
-    and ``[code table, B, max_trials, launches]``."""
+    """The shapes this process launched the MF, LDPC and PL sync kernels
+    at, each with its launches: ``[C, n, S, seg_len, L, sps, off_bound,
+    launches]``, ``[code table, B, max_trials, launches]`` and the PL sync
+    kernels' layouts (``ops.plsync_cuda.LAUNCH_SHAPES``' keys) with their
+    launches."""
     return {"mf_segmented": [[*k, v] for k, v in
                              fir_cuda.LAUNCH_SHAPES.items()],
             "ldpc_layered": [[*k, v] for k, v in
-                             ldpc_cuda.LAUNCH_SHAPES.items()]}
+                             ldpc_cuda.LAUNCH_SHAPES.items()],
+            "plsync": [[*k, v] for k, v in
+                       plsync_cuda.LAUNCH_SHAPES.items()]}
 
 
 def _final_stats(rx, n_samples, t0):

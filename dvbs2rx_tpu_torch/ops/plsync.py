@@ -273,10 +273,21 @@ def coarse_autocorr(plheader, plsc, full=True):
 
     plheader: (..., 90, 2); plsc: (...) int. Returns r (..., N-1, 2) with
     r[m-1] = sum_n p[n+m] conj(p[n]), p the modulation-removed header (its
-    SOF part only when ``full`` is False). The JAX grouped-convolution
-    formulation (a TPU dispatch-count workaround) becomes one outer product
-    summed along its diagonals by a matmul.
+    SOF part only when ``full`` is False). On a CUDA tensor one launch of
+    the PLHEADER kernel (``ops.plsync_cuda``), which sums each lag
+    directly; on the CPU the plain version, ``coarse_autocorr_plain``.
     """
+    if plheader.is_cuda:
+        from .plsync_cuda import coarse_autocorr_cuda
+
+        return coarse_autocorr_cuda(plheader, plsc, full)
+    return coarse_autocorr_plain(plheader, plsc, full)
+
+
+def coarse_autocorr_plain(plheader, plsc, full=True):
+    """``coarse_autocorr`` in plain PyTorch: the JAX grouped-convolution
+    formulation (a TPU dispatch-count workaround) becomes one outer product
+    summed along its diagonals by a matmul."""
     p = mod_removed_plheader(plheader, plsc)
     N = PLHEADER_LEN if full else SOF_LEN
     p = p[..., :N, :]
@@ -316,6 +327,15 @@ def plheader_phase(plheader, plsc):
     return data_aided_phase(plheader, lut[plsc])
 
 
+def plheader_tail_phase(plheader, plsc):
+    """Data-aided phase of the PLHEADER's last 36 symbols (the pilot-mode
+    fine CFO's first phase)."""
+    lut = _t(plheader_conj_lut(), plheader)
+    tail_conj = lut[plsc][..., PLHEADER_LEN - PILOT_BLK_LEN:, :]
+    return data_aided_phase(plheader[..., PLHEADER_LEN - PILOT_BLK_LEN:, :],
+                            tail_conj)
+
+
 def pilot_phases(payload_descrambled, n_pilots: int):
     """Average phase of each descrambled 36-symbol pilot block (batched),
     less the pilots' pi/4; (..., n_pilots) or None without pilots."""
@@ -330,11 +350,14 @@ def pilot_phases(payload_descrambled, n_pilots: int):
 def fine_foffset_pilot_mode(plheader, payload_descrambled, plsc,
                             n_pilots: int):
     """Pilot-aided fine CFO (reference ``pl_freq_sync.cc:255-303``)."""
-    lut = _t(plheader_conj_lut(), plheader)
-    tail_conj = lut[plsc][..., PLHEADER_LEN - PILOT_BLK_LEN:, :]
-    ph0 = data_aided_phase(plheader[..., PLHEADER_LEN - PILOT_BLK_LEN:, :],
-                           tail_conj)
-    phs = pilot_phases(payload_descrambled, n_pilots)
+    return fine_from_pilot_phases(
+        plheader_tail_phase(plheader, plsc),
+        pilot_phases(payload_descrambled, n_pilots), n_pilots)
+
+
+def fine_from_pilot_phases(ph0, phs, n_pilots: int):
+    """Pilot-aided fine CFO from the header tail phase ``ph0`` (...) and
+    the pilot-block phases ``phs`` (..., n_pilots)."""
     allph = torch.cat([ph0[..., None], phs], dim=-1)
     diff = _wrap(allph[..., 1:] - allph[..., :-1])
     return diff.sum(-1) / (2 * math.pi * PILOT_BLK_PERIOD * n_pilots)

@@ -4,8 +4,9 @@ Port of ``make_lane_fn`` and ``BatchedPipeline`` from
 ``dvbs2rx_tpu/parallel/batch.py``. The JAX closure processes one frame and
 is vmapped over lanes; here the lane axis is written out. At the boundary
 it stays trailing, as the JAX vmap's ``in_axes=-1`` / ``out_axes`` put it:
-headers (91, 2, B), payloads (Lp, 2, B), LLRs out (N, B). Inside, lanes
-lead, so the batched ``plsync`` and ``demap`` functions apply directly.
+headers (91, 2, C, F+1), payloads (Lp, 2, C, F), int8 LLRs out (N, B).
+The lane function reads them in place through strided views (the
+PLHEADER and payload kernels of ``ops.plsync_cuda``).
 
 ``make_channel_mesh`` and ``shard_channels`` are the JAX module's mesh
 helpers over ``parallel.mesh.Mesh``: a channel mesh is a list of devices
@@ -17,14 +18,10 @@ device.
 import numpy as np
 import torch
 
-from ..ops import cplx, plsync
-from ..ops.demap import (
-    demap,
-    estimate_snr_generic,
-    estimate_snr_qpsk,
-    quantize_llrs,
-)
+from ..ops import cplx, plsync_cuda
 from ..rx.receiver import FECStage, RxConfig
+from ..spec.pl_defs import PLHEADER_LEN
+from ..utils.runtime import device_table
 from .mesh import Mesh, all_cards
 
 
@@ -52,56 +49,44 @@ def shard_channels(mesh: Mesh, arr, axis: int = -2):
 def make_lane_fn(cfg, descr):
     """Lane-batched PLFRAME processing closure.
 
-    ``lane(hdr_ext, nxt_ext, payload, coarse_corrected, n0_override)``:
-    hdr_ext/nxt_ext (91, 2, B) extended header pairs, payload (Lp, 2, B),
-    coarse_corrected (B,) bool, n0_override (B,) float (> 0 demaps with the
-    post-decoder refined N0). ``descr`` is the (Lp, 2) planar PL
-    descrambling sequence on the lanes' device. Returns a dict with
-    metric (B, 2), autocorr (B, 89, 2), fine (B,), n0 (B,), llrs (N, B)
-    float32 before quantisation, xfec (B, R, 2).
+    ``lane(own, nxt, sym, start, coarse_corrected, n0_override,
+    x_every=0)``: own/nxt (X, Y, 90, 2) views of each lane's PLHEADER and
+    of the next frame's (lane b = x Y + y, B = X Y), sharing their
+    strides; sym (X, Y, rows, 2) each lane's symbol buffer, whose payload
+    starts at row ``start[b]`` ((B,) int64, clamped into [0, rows - Lp];
+    None: row 0), read in place; coarse_corrected (B,) bool, n0_override
+    (B,) float (> 0 demaps with the post-decoder refined N0). ``descr`` is
+    the (Lp, 2) planar PL descrambling sequence on the lanes' device.
+    Returns a dict with metric (B, 2), autocorr (B, 89, 2), fine (B,), n0
+    (B,), llrs (N, B) int8 (lane-major, the FEC stage's layout) and, with
+    ``x_every`` > 0, x0 (B / x_every, R, 2) the corrected symbols of lanes
+    0, x_every, ... (frame 0 of each channel). Two launches on the card
+    (``ops.plsync_cuda``: the PLHEADER and payload kernels); their plain
+    versions on the CPU.
     """
     info = cfg.pls_info
+    pls_tab = np.array([cfg.pls], np.int64)
+    R = info.n_slots * 90
+    N = R * info.n_mod
 
-    def lane(hdr_ext, nxt_ext, payload, coarse_corrected, n0_override):
-        exts = torch.stack([hdr_ext, nxt_ext]).permute(3, 0, 1, 2)  # (B,2,91,2)
-        headers = exts[:, :, 1:]                                    # (B,2,90,2)
-        d = cplx.conj_mul(exts[:, :, 1:], exts[:, :, :-1])
-        metric = plsync.frame_metric(d[:, :, 1:])                   # (B, 2)
-        B = exts.shape[0]
-        pls2 = torch.full((B, 2), cfg.pls, dtype=torch.int64,
-                          device=exts.device)
-        r = plsync.coarse_autocorr(headers[:, 0], pls2[:, 0], full=True)
-        hdr_phase = plsync.plheader_phase(headers, pls2)            # (B, 2)
-        pay = payload.permute(2, 0, 1)                              # (B,Lp,2)
-        payload_d = cplx.cmul(pay, descr)
-        if info.has_pilots:
-            fine = plsync.fine_foffset_pilot_mode(
-                headers[:, 0], payload_d, pls2[:, 0], info.n_pilots
-            )
-            pil_ph = plsync.pilot_phases(payload_d, info.n_pilots)
-            fine_ff = torch.where(coarse_corrected, fine, 0.0)
-            xfec = plsync.correct_payload_pilots(
-                payload_d, hdr_phase[:, 0], pil_ph, fine_ff,
-                info.n_slots, info.n_pilots,
-            )
-        else:
-            fine = plsync.fine_foffset_pilotless(
-                hdr_phase[:, 0], hdr_phase[:, 1], info.plframe_len
-            )
-            fine_ff = torch.where(coarse_corrected, fine, 0.0)
-            xfec = plsync.correct_payload_pilotless(
-                payload_d, hdr_phase[:, 0], fine_ff
-            )
-        if cfg.constellation == "QPSK":
-            snr = estimate_snr_qpsk(xfec)
-        else:
-            snr = estimate_snr_generic(xfec, cfg.constellation, cfg.rate)
-        n0 = 1.0 / snr.clamp(min=1e-9)
-        n0_demap = torch.where(n0_override > 0, n0_override, n0)
-        llr = demap(xfec, n0_demap, cfg.constellation, cfg.rate,
-                    quantize=False)                                 # (B, N)
-        return {"metric": metric, "autocorr": r, "fine": fine, "n0": n0,
-                "llrs": llr.t(), "xfec": xfec}
+    def lane(own, nxt, sym, start, coarse_corrected, n0_override,
+             x_every=0):
+        dev = own.device
+        B = own.shape[0] * own.shape[1]
+        pls = device_table(pls_tab, dev)
+        hk = plsync_cuda.plheader([own, nxt], [pls, pls],
+                                  n_auto=PLHEADER_LEN, metric=True)
+        llrs = torch.empty((N, B), dtype=torch.int8, device=dev)
+        fine = torch.empty((B,), dtype=torch.float32, device=dev)
+        n0 = torch.empty((B,), dtype=torch.float32, device=dev)
+        x0 = (torch.empty((B // x_every, R, 2), dtype=torch.float32,
+                          device=dev) if x_every else None)
+        plsync_cuda.payload(sym, start, info.payload_len, descr, hk["phase"],
+                            coarse_corrected, n0_override, info,
+                            cfg.constellation, cfg.rate, llrs, fine, n0,
+                            x_out=x0, x_every=max(x_every, 1))
+        return {"metric": hk["metric"], "autocorr": hk["autocorr"],
+                "fine": fine, "n0": n0, "llrs": llrs, "x0": x0}
 
     return lane
 
@@ -111,7 +96,7 @@ class BatchedPipeline:
 
     One ``step`` call takes frame-aligned symbol groups for each channel and
     produces decoded BBFRAME bytes plus aggregated statistics: the lane
-    function over all C x F lanes, ``quantize_llrs``, then the lane-major
+    function over all C x F lanes (int8 LLRs), then the lane-major
     FEC stage (one LDPC launch of B = C x F frames on the card).
     Acquisition and TS stitching stay on the host. On the card unless
     ``device="cpu"``.
@@ -177,17 +162,16 @@ class BatchedPipeline:
         dev = self.device
         headers_ext = torch.as_tensor(headers_ext, device=dev)
         payloads = torch.as_tensor(payloads, device=dev)
-        hdr = headers_ext[..., :F].reshape(91, 2, B)
-        nxt = headers_ext[..., 1:].reshape(91, 2, B)
-        pay = payloads.reshape(self.payload_len, 2, B)
+        # (C, F, n, 2) views of the lane-major inputs: lane b = c F + f
+        hdr = headers_ext[1:].permute(2, 3, 0, 1)
+        sym = payloads.permute(2, 3, 0, 1)
         if isinstance(coarse_corrected, torch.Tensor):
             cc = coarse_corrected.to(dev, torch.bool).expand(B)
         else:       # a fill, not a host->device copy (which would sync)
             cc = torch.full((B,), bool(coarse_corrected), device=dev)
         n0_ov = torch.full((B,), -1.0, device=dev)
-        out = self._lane(hdr, nxt, pay, cc, n0_ov)
-        llrsT = quantize_llrs(out["llrs"])                       # (N, B)
-        kbytes, n_corr, iters, _ok, _hard = self.fec.lane_major(llrsT,
+        out = self._lane(hdr[:, :F], hdr[:, 1:], sym, None, cc, n0_ov)
+        kbytes, n_corr, iters, _ok, _hard = self.fec.lane_major(out["llrs"],
                                                                 sync_free)
         stats = {
             "bch_errors": (n_corr < 0).sum(),

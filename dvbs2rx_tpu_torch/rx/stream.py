@@ -10,7 +10,9 @@ stats`` over every channel at once, composing:
 - feed-forward O&M timing with the segmented polyphase matched filter
   (``ops.ffsync``; the CUDA kernel ``csrc/mf_segmented.cu`` on the card);
 - frame-window extraction and the early/late frame DLL;
-- per-lane PL sync, descrambling and demap (``parallel.batch.make_lane_fn``);
+- per-lane PL sync, descrambling and demap (``parallel.batch.make_lane_fn``:
+  the PLHEADER and payload kernels ``csrc/plsync.cu`` on the card, which
+  read the payloads in place and write int8 LLRs);
 - layered LDPC (``csrc/ldpc_layered.cu`` on the card), BCH, byte packing;
 - device CRC-8 validity (``ops.crc8_dev.packet_validity``);
 - the host TS stitch (``spec.bb_frame.BatchTSStitcher``).
@@ -48,14 +50,13 @@ from .._build import launch_counts
 from ..convert import sharded_state_from_numpy, state_from_numpy
 from ..ops import cplx, plsync
 from ..ops.crc8_dev import packet_validity
-from ..ops.demap import quantize_llrs
 from ..ops.ffsync import FeedForwardSync, FFSyncState
 from ..ops.frontend import rotate_block
 from ..parallel.batch import make_lane_fn
 from ..parallel.mesh import Mesh
 from ..spec.bb_frame import BatchTSStitcher
 from ..spec.scramblers import bb_derandomizer_bytes
-from ..utils.runtime import resolve_device
+from ..utils.runtime import device_table, resolve_device
 from .receiver import (
     FECStage,
     RxConfig,
@@ -169,6 +170,8 @@ class StreamReceiver(StreamFrontEnd):
         self.N_BUF = self.n_in + self._hist + L * cfg.sps + 1024
         self._settle0 = int((TAIL + self.N_BUF / cfg.sps) // L + 2)
         self._lane = make_lane_fn(cfg, self.fec.descr)
+        # payload k of a step's window starts at row k L + 92 of the window
+        self._pay_off = np.arange(F, dtype=np.int64) * L + 92
 
     # ---------------- state ----------------
 
@@ -222,19 +225,21 @@ class StreamReceiver(StreamFrontEnd):
 
     def _windows(self, sym_all, fp):
         """(C, T, 2) symbols + per-channel fp -> (hdr (C, F+1, 91, 2),
-        pay (C, F, Lp, 2), hdr3 (C, F+1, 3, 91, 2) early/on-time/late)."""
-        F, L, Lp = self.F, self.frame_len, self.payload_len
-        w = _window(sym_all, fp - 2, F * L + 94)
+        hdr3 (C, F+1, 3, 91, 2) early/on-time/late, the window's first row
+        (C,) int64). The payloads stay in ``sym_all``: the lane program
+        reads payload k at row ``first + k L + 92``."""
+        F, L = self.F, self.frame_len
+        W = F * L + 94
+        first = (fp.to(torch.int64) - 2).clamp(0, sym_all.shape[1] - W)
+        w = _window(sym_all, first, W)
         hdr = torch.stack(
             [w[:, k * L + 1: k * L + 92] for k in range(F + 1)], dim=1)
-        pay = torch.stack(
-            [w[:, k * L + 92: k * L + 92 + Lp] for k in range(F)], dim=1)
         hdr3 = torch.stack([
             torch.stack([w[:, k * L + 1 + d: k * L + 92 + d]
                          for k in range(F + 1)], dim=1)
             for d in (-1, 0, 1)
         ], dim=2)
-        return hdr, pay, hdr3
+        return hdr, hdr3, first
 
     def _slip_metric(self, hdr3):
         """Mean frame metric per (channel, early/on-time/late): (C, 3)."""
@@ -276,23 +281,24 @@ class StreamReceiver(StreamFrontEnd):
         st, syms, overflow, underflow = self._frontend(state, iq)
         sym_all = torch.cat([st["sym_tail"], syms], dim=1)      # (C, T, 2)
         fp = st["fp"]
-        hdr, pay, hdr3 = self._windows(sym_all, fp)
+        hdr, hdr3, first = self._windows(sym_all, fp)
 
-        # ---- per-lane PL processing + demap (lane b = c*F + f) ----
-        h = hdr[:, :F].reshape(B, 91, 2).permute(1, 2, 0)
-        nxt = hdr[:, 1:].reshape(B, 91, 2).permute(1, 2, 0)
-        p = pay.reshape(B, self.payload_len, 2).permute(1, 2, 0)
+        # ---- per-lane PL processing + demap (lane b = c*F + f), the
+        # payloads read in place from sym_all ----
+        start = (first[:, None] + device_table(self._pay_off, fp.device)
+                 ).reshape(B)
+        sym = sym_all[:, None].expand((C, F) + sym_all.shape[1:])
         n0_ov = torch.where(st["n0_refined"] > 0, st["n0_refined"],
                             -1.0).repeat_interleave(F)
         cc = st["coarse_corrected"].repeat_interleave(F)
-        out = self._lane(h, nxt, p, cc, n0_ov)
-        llrsT = quantize_llrs(out["llrs"])                       # (N, B)
-        kbytes, n_corr, iters, ok, hard_t = self.fec.lane_major(llrsT,
+        out = self._lane(hdr[:, :F, 1:], hdr[:, 1:, 1:], sym, start, cc,
+                         n0_ov, x_every=F)
+        kbytes, n_corr, iters, ok, hard_t = self.fec.lane_major(out["llrs"],
                                                                 sync_free)
         ts_ok, hdr_ok = packet_validity(kbytes ^ self.fec.bb_scramble[None])
 
         # ---- post-decoder SNR refinement (frame 0 of each channel) ----
-        xfec_c = out["xfec"].reshape(C, F, -1, 2)[:, 0]
+        xfec_c = out["x0"]
         hard_c = hard_t[:, ::F].t()
         snr_ref = _snr_refine_frames(xfec_c, hard_c, cfg.constellation,
                                      cfg.rate, cfg.pls_info.n_mod)

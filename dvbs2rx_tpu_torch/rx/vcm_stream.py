@@ -15,8 +15,10 @@ decides where the next frame starts, so one step composes:
   CFO is corrected, then ``cfg.plsc_mode``), and the PLS -> frame length
   table; on the card one launch of ``csrc/vcm_walk.cu`` a step
   (``ops.vcm_walk_cuda``), on the CPU the plain loop ``_walk_plain``;
-- per expected PLS, the lane program (descramble, fine CFO, phase
-  correction, SNR, demap) over every lane, and a selection by decoded PLS;
+- the PLHEADER kernel (``csrc/plsync.cu``) over the walked slots (header
+  phases and the coarse-CFO autocorrelation), then per expected PLS the
+  payload kernel (descramble, fine CFO, phase correction, SNR, demap,
+  int8 LLRs) over the lanes that decoded to it, reading the ring in place;
 - lock upkeep, full-PLHEADER coarse CFO and the closed-loop rotator;
 - per expected PLS, a pooled FEC queue (frames from every channel and
   step) that decodes full ``B_fec``-frame batches with the LDPC kernel
@@ -49,14 +51,9 @@ import torch
 import torch.nn.functional as Fn
 
 from ..convert import vcm_state_from_numpy
-from ..ops import cplx, plsync
+from ..ops import cplx, plsync, plsync_cuda
 from ..ops.crc8_dev import packet_validity
-from ..ops.demap import (
-    demap,
-    estimate_snr_generic,
-    estimate_snr_qpsk,
-    quantize_llrs,
-)
+from ..ops.demap import quantize_llrs
 from ..ops.ffsync import FeedForwardSync
 from ..ops.frontend import rotate_block
 from ..ops.vcm_walk_cuda import vcm_walk
@@ -346,48 +343,39 @@ class VCMStreamReceiver(StreamFrontEnd):
         n_walked = slots["valid"].sum(0, dtype=torch.int32)
         return slots, self.N_SYM - pos, pls, n_walked
 
-    def _demap_lanes(self, si, hdr, pay, nxt_ph, corrected, n0_ov):
-        """Lane program of expected PLS ``si`` over every lane (static
-        geometry): hdr (B, 90, 2), pay (B, Lp_max, 2), nxt_ph (B,),
-        corrected (B,) bool, n0_ov (B,) refined N0 (> 0 overrides the
-        data-aided one). Returns (llrs (B, n_ldpc) float32, fine (B,),
-        n0 (B,), the symbol snapshot x XF_SCALE (B, 2 R_SUB) float32)."""
+    def _demap_lanes(self, si, sym, start, ph, corrected, n0_ov, sel, llr8,
+                     xf, fine, n0):
+        """Lane program of expected PLS ``si`` over the lanes set in
+        ``sel`` (B,) bool, in place: sym (C, F_pay, N_SYM, 2) the ring as
+        one view per lane, start (B,) each lane's payload row (clamped as a
+        window of Lp_max), ph (B, 2, 2) the phases of the lane's header and
+        of the next, corrected (B,) bool, n0_ov (B,) refined N0 (> 0
+        overrides the data-aided one). Writes the selected lanes' int8 LLRs
+        into llr8 (B, n_ldpc), their symbol snapshot x XF_SCALE into xf (B,
+        2 R_SUB), the fine CFO into fine and the N0 demapped with into n0
+        (B,); on the card one launch of the payload kernel. On the CPU
+        (the plain version) also returns the lanes' float LLRs (B, n_ldpc),
+        zero-padded."""
         info, fec = self._infos[si], self._fecs[si]
         const, rate = _MODCODS[info.modcod]
-        Lp = info.payload_len
-        pls = self.pls_set[si]
-        hdr_phase = plsync.plheader_phase(hdr, pls)
-        p = cplx.cmul(pay[:, :Lp], self._descr[:Lp])
-        if info.has_pilots:
-            fine = plsync.fine_foffset_pilot_mode(hdr, p, pls, info.n_pilots)
-            pil_ph = plsync.pilot_phases(p, info.n_pilots)
-            xfec = plsync.correct_payload_pilots(
-                p, hdr_phase, pil_ph, torch.where(corrected, fine, 0.0),
-                info.n_slots, info.n_pilots)
-        else:
-            fine = plsync.fine_foffset_pilotless(hdr_phase, nxt_ph,
-                                                 info.plframe_len)
-            xfec = plsync.correct_payload_pilotless(
-                p, hdr_phase, torch.where(corrected, fine, 0.0))
-        if const == "QPSK":
-            snr = estimate_snr_qpsk(xfec)
-        else:
-            snr = estimate_snr_generic(xfec, const, rate)
-        n0 = 1.0 / snr.clamp(min=1e-9)
-        n0_use = torch.where(n0_ov > 0, n0_ov, n0)
-        llr = demap(xfec, n0_use, const, rate, quantize=False)
-        if fec.nldpc < self.n_ldpc:
+        llr = plsync_cuda.payload(
+            sym, start, self.Lp_max, self._descr, ph, corrected, n0_ov, info,
+            const, rate, llr8.t(), fine, n0, sel=sel,
+            x_out=xf.view(-1, self.R_SUB, 2), x_scale=self.XF_SCALE,
+            n0_use=True, want_float=not sym.is_cuda)
+        if llr is not None and fec.nldpc < self.n_ldpc:
             llr = Fn.pad(llr, (0, self.n_ldpc - fec.nldpc))
-        xf = xfec[:, : self.R_SUB].reshape(-1, self.R_SUB * 2)
-        return llr, fine, n0_use, xf * self.XF_SCALE
+        return llr
 
     def _step_a(self, state, iq):
         """Front end, walk, lane compaction, per-PLS demap and selection,
         lock upkeep, coarse CFO and the rotator. Returns (state', llr (B,
         n_ldpc) float32, xf (B, 2 R_SUB) float32 scaled symbol snapshots,
         meta (B, 2) int32 (channel, seq), sels (S, B) bool, stats); lane
-        b = c * F_pay + f. The JAX step returns llr and xf quantized to
-        int8; here ``_step_b`` quantizes them (the same values)."""
+        b = c * F_pay + f. On the card llr is int8, as the payload kernel
+        writes it (the JAX step returns llr and xf quantized); on the CPU
+        it is the float values, which ``_step_b`` quantizes (the same
+        int8 values)."""
         cfg = self.cfg
         C, K, FP, B = self.n_channels, self.K_max, self.F_pay, self.B_lanes
         dev = iq.device
@@ -403,8 +391,15 @@ class VCMStreamReceiver(StreamFrontEnd):
         is_data = valid & ~is_dummy & is_enabled
         rejected = valid & ~is_dummy & ~is_enabled
 
-        # next-header phases (pilotless fine CFO), with the decoded next PLS
-        nxt_ph = plsync.plheader_phase(slots["next_hdr"], slots["next_pls"])
+        # every walked slot's header and next header, with their decoded
+        # PLS: data-aided and tail phases, and the own header's full
+        # PLHEADER autocorrelation (coarse CFO); one launch on the card
+        hk = plsync_cuda.plheader(
+            [slots["own_hdr"], slots["next_hdr"]],
+            [pls_s.reshape(-1), slots["next_pls"].reshape(-1)],
+            n_auto=90)
+        ph_s = hk["phase"].reshape(K, C, 2, 2)
+        r_full = hk["autocorr"].reshape(K, C, 89, 2)
 
         # ---- compact data slots to (C, F_pay) stream-ordered lanes: a
         # scatter by rank; slots past F_pay and non-data slots go to a
@@ -421,38 +416,39 @@ class VCMStreamReceiver(StreamFrontEnd):
 
         d_pos = compact(slots["pos"])
         d_pls = compact(pls_s)
-        d_nxtph = compact(nxt_ph)
-        d_hdr = compact(slots["own_hdr"])                         # C,FP,90,2
+        d_ph = compact(ph_s)                                      # C,FP,2,2
         d_valid = compact(is_data)
         counts = is_data.sum(0, dtype=torch.int32)                 # (C,)
         d_seq = state["seq"][:, None] + torch.arange(FP, device=dev,
                                                      dtype=torch.int32)
 
-        # ---- payload extraction (max shape), lanes ----
-        pay = _window(symbuf, d_pos + 90, self.Lp_max)            # C,FP,Lp,2
-        hdr_l = d_hdr.reshape(B, 90, 2)
-        pay_l = pay.reshape(B, self.Lp_max, 2)
-        nxtph_l = d_nxtph.reshape(B)
+        # ---- lanes: payloads read in place from the ring (max window) ----
+        sym = symbuf[:, None].expand((C, FP) + symbuf.shape[1:])
+        start_l = (d_pos + 90).reshape(B)
+        ph_l = d_ph.reshape(B, 2, 2)
         pls_l = d_pls.reshape(B)
         valid_l = d_valid.reshape(B)
         corrected_l = state["coarse_corrected"].repeat_interleave(FP)
 
-        # ---- per-expected-PLS demap (static geometry), lane select ----
-        llr = torch.zeros((B, self.n_ldpc), device=dev)
+        # ---- per-expected-PLS demap (static geometry) of the lanes that
+        # decoded to it: each lane once, written in place ----
+        llr8 = torch.zeros((B, self.n_ldpc), dtype=torch.int8, device=dev)
         xf = torch.zeros((B, self.R_SUB * 2), device=dev)
         fine = torch.zeros((B,), device=dev)
         n0 = torch.zeros((B,), device=dev)
+        llr = None if symbuf.is_cuda else torch.zeros((B, self.n_ldpc),
+                                                      device=dev)
         sels = []
         for si in range(self.S):
             n0_ov = state["n0_refined"][:, si].repeat_interleave(FP)
-            l_s, f_s, n_s, x_s = self._demap_lanes(si, hdr_l, pay_l, nxtph_l,
-                                                   corrected_l, n0_ov)
             sel = valid_l & (pls_l == self.pls_set[si])
             sels.append(sel)
-            llr = torch.where(sel[:, None], l_s, llr)
-            xf = torch.where(sel[:, None], x_s, xf)
-            fine = torch.where(sel, f_s, fine)
-            n0 = torch.where(sel, n_s, n0)
+            l_s = self._demap_lanes(si, sym, start_l, ph_l, corrected_l,
+                                    n0_ov, sel, llr8, xf, fine, n0)
+            if llr is not None:
+                llr = torch.where(sel[:, None], l_s, llr)
+        if llr is None:
+            llr = llr8
         meta = torch.stack([
             torch.arange(C, device=dev, dtype=torch.int32).repeat_interleave(
                 FP),
@@ -469,7 +465,6 @@ class VCMStreamReceiver(StreamFrontEnd):
         locked = unlock < cfg.unlock_thresh
 
         # ---- coarse CFO: full-PLHEADER accumulation over walked slots ----
-        r_full = plsync.coarse_autocorr(slots["own_hdr"], pls_s, full=True)
         acc = state["coarse_acc"]
         cf = state["coarse_frames"]
         settle = state["settle"]
@@ -631,10 +626,13 @@ class VCMStreamReceiver(StreamFrontEnd):
 
     @staticmethod
     def quantize(llr, xf):
-        """Step A's float lanes -> the int8 queue contents: LLRs and the
-        symbol snapshots (rounded half to even, clipped to +-127)."""
-        return (quantize_llrs(llr),
-                torch.round(xf).clamp(-127, 127).to(torch.int8))
+        """Step A's lanes -> the int8 queue contents: LLRs (those that
+        arrive as int8 from the payload kernel as they are; float values
+        rounded half to even and clipped to int8) and the symbol snapshots
+        (rounded half to even, clipped to +-127)."""
+        if llr.dtype != torch.int8:
+            llr = quantize_llrs(llr)
+        return llr, torch.round(xf).clamp(-127, 127).to(torch.int8)
 
     def _step_b(self, st, llr, xf, meta, sels):
         """Every PLS's queue append, pooled drain of full batches and

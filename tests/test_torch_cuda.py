@@ -36,7 +36,8 @@ from dvbs2rx_tpu_torch.rx.receiver import RxConfig
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
 
 from chip_smoke import (WALK_MODES, WALK_TOL, _gardner_waveform,
-                        _make_vcm_stimulus, _walk_diff, _walk_states)
+                        _make_vcm_stimulus, _plsync_small, _walk_diff,
+                        _walk_states)
 
 pytestmark = pytest.mark.cuda
 
@@ -1077,8 +1078,8 @@ def _assert_like_eager(got, want):
 
 def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     """One capture of T = 3 chained steps holds T launches of each ctypes
-    kernel of the step (MF, LDPC, and the sync-free form's BCH locator,
-    Chien and CRC-8; counted while captured; the profiler
+    kernel of the step (MF, PLHEADER, payload, LDPC, and the sync-free
+    form's BCH locator, Chien and CRC-8; counted while captured; the profiler
     sees them in one replay), and its replays equal T eager steps from the
     same state, call after call, with no host sync."""
     import warnings
@@ -1091,8 +1092,9 @@ def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     scan = sr.make_scan_step(3)
     before = launch_counts()
     out = scan(primed, blocks)
-    step_kernels = ("mf_segmented", "ldpc_layered", "bch_locator",
-                    "bch_chien", "crc8_validity")
+    step_kernels = ("mf_segmented", "plsync_header", "plsync_payload",
+                    "ldpc_layered", "bch_locator", "bch_chien",
+                    "crc8_validity")
     assert scan.launches_per_call == {
         k: 3 if k in step_kernels else 0 for k in before}
     # the warm-up step and the capture
@@ -1530,3 +1532,133 @@ def test_bench_sections_on_card_at_a_small_width(card):
     assert gf["group_fec_launches_per_step"]["ldpc_layered"] == 1
     assert after["mf_segmented"] > before["mf_segmented"]
     assert isinstance(gf["group_fec_host_syncs_per_step"], int)
+
+
+# ------------- PL sync + demap kernels (csrc/plsync.cu, ops/plsync_cuda) -----
+
+@pytest.mark.parametrize("pilots", [False, True])
+@pytest.mark.parametrize("modcod", ["qpsk1/2", "8psk3/5", "16apsk2/3",
+                                    "32apsk3/4"])
+def test_plsync_kernels_match_plain(card, modcod, pilots):
+    """The PLHEADER and payload kernels against their plain versions on
+    chip_smoke phase 14 (c)'s inputs (4 channels x 2 short frames): phases,
+    metric, autocorrelation, fine, N0 and symbols within its tolerances,
+    int8 LLRs equal but for +-1 at rounding ties; per-lane starts clamping
+    at both ends, a lane mask and the row layout with padding."""
+    from dvbs2rx_tpu_torch.ops import plsync_cuda
+
+    n0 = dict(plsync_cuda.LAUNCHES)
+    rec = _plsync_small(card.type, [(modcod, pilots)])
+    assert plsync_cuda.LAUNCHES["plsync_header"] == n0["plsync_header"] + 1
+    assert plsync_cuda.LAUNCHES["plsync_payload"] == n0["plsync_payload"] + 2
+    (r,) = rec.values()
+    assert r["payload"]["llr_ties"] <= 1e-3 * r["payload"]["llrs"]
+
+
+@pytest.mark.parametrize("full", [True, False])
+def test_coarse_autocorr_kernel_matches_plain(card, full):
+    """coarse_autocorr on the card: one PLHEADER launch for any batch
+    shape (a non-contiguous view, an int32 PLS broadcast over a channel
+    axis), recorded under its layout, within 1e-5 of the largest magnitude
+    of its plain version."""
+    from dvbs2rx_tpu_torch.ops import plsync, plsync_cuda
+
+    rng = np.random.default_rng(31 + full)
+    hdr = torch.as_tensor(rng.standard_normal((7, 5, 90, 2)).astype(
+        np.float32), device=card).transpose(0, 1)          # (5, 7, 90, 2)
+    pls = torch.as_tensor(rng.integers(0, 128, (1, 7)).astype(np.int32),
+                          device=card)
+    n0 = plsync_cuda.LAUNCHES["plsync_header"]
+    before = dict(plsync_cuda.LAUNCH_SHAPES)
+    got = plsync.coarse_autocorr(hdr, pls, full=full)
+    assert plsync_cuda.LAUNCHES["plsync_header"] == n0 + 1
+    layout = plsync_cuda._header_layout([hdr.reshape(1, 35, 90, 2)], 35,
+                                        90 if full else 26, False)
+    assert {k: n - before.get(k, 0) for k, n in
+            plsync_cuda.LAUNCH_SHAPES.items() if n != before.get(k, 0)} \
+        == {layout: 1}
+    want = plsync.coarse_autocorr_plain(hdr, pls, full=full)
+    assert got.shape == want.shape == (5, 7, 89 if full else 25, 2)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+
+
+def test_plsync_wrappers_raise_on_the_card(card):
+    """The wrappers refuse inputs the kernels do not take (a PLS on another
+    device, a header view of another length, a float LLR buffer) and
+    launch nothing then."""
+    from dvbs2rx_tpu_torch.ops import plsync_cuda
+    from dvbs2rx_tpu_torch.spec.pls import parse_pls
+
+    hdr = torch.zeros((2, 3, 90, 2), device=card)
+    pls = torch.zeros((6,), dtype=torch.int64, device=card)
+    n0 = dict(plsync_cuda.LAUNCHES)
+    for bad in ((hdr, pls.cpu()), (hdr[:, :, :89], pls),
+                (hdr, pls.to(torch.int32))):
+        with pytest.raises(ValueError):
+            plsync_cuda.plheader([bad[0]], [bad[1]])
+    info = parse_pls(4 << 2)
+    B, Lp = 6, info.payload_len
+    kw = dict(sym=torch.zeros((2, 3, Lp, 2), device=card), start=None,
+              clamp_len=Lp, descr=torch.zeros((Lp, 2), device=card),
+              ph=torch.zeros((B, 2, 2), device=card),
+              cc=torch.zeros(B, dtype=torch.bool, device=card),
+              n0_ov=torch.zeros(B, device=card), info=info,
+              constellation="QPSK", rate="1/2",
+              fine_out=torch.zeros(B, device=card),
+              n0_out=torch.zeros(B, device=card))
+    N = info.n_slots * 90 * 2
+    with pytest.raises(ValueError):
+        plsync_cuda.payload(llr_out=torch.zeros((N, B), device=card), **kw)
+    with pytest.raises(ValueError):
+        plsync_cuda.payload(llr_out=torch.zeros((N, B), dtype=torch.int8,
+                                                device=card),
+                            **dict(kw, constellation="8PSK", rate="3/5"))
+    assert plsync_cuda.LAUNCHES == n0
+
+
+def test_steps_on_card_never_run_the_plain_lane_program(card, monkeypatch):
+    """A CCM step and a VCM step on the card go through the PLHEADER and
+    payload kernels and never through their plain versions (patched to
+    raise)."""
+    from dvbs2rx_tpu_torch.ops import plsync, plsync_cuda
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain lane function ran on the card")
+
+    for mod, name in ((plsync_cuda, "payload_plain"),
+                      (plsync_cuda, "plheader_plain"),
+                      (plsync, "coarse_autocorr_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    C, F, T = 2, 2, 2
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short")
+    sr = StreamReceiver(cfg, n_channels=C, frames_per_step=F, device=card)
+    tx = Transmitter(TxConfig(modcod="qpsk1/2", frame_size="short"))
+    rng = np.random.default_rng(0)
+    pkts = rng.integers(0, 256, (120, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    iq = np.stack([awgn_channel(tx.ts_to_iq(pkts.reshape(-1)), 15.0, sps=2,
+                                seed=1)] * C)
+    state = sr.prime(iq[:, : sr._n_fe])
+    n0 = dict(plsync_cuda.LAUNCHES)
+    for t in range(T):
+        blk = cplx.from_np(iq[:, sr._n_fe + t * sr.n_in:
+                              sr._n_fe + (t + 1) * sr.n_in]).astype(np.float32)
+        state, _, st = sr.step(state, sr.put_iq(blk))
+    assert bool(st["locked"].all()) and int(st["bch_errors"]) == 0
+    assert plsync_cuda.LAUNCHES["plsync_header"] == n0["plsync_header"] + T
+    assert plsync_cuda.LAUNCHES["plsync_payload"] == n0["plsync_payload"] + T
+    vcfg, viq = _vcm_case([0, 1], 300)
+    vr = VCMStreamReceiver(vcfg, 2, 2, fec_lanes=8, device=card)
+    state = vr.prime(viq[:, : vr._n_fe])
+    n0 = dict(plsync_cuda.LAUNCHES)
+    for t in range(T):
+        blk = cplx.from_np(viq[:, vr._n_fe + t * vr.n_in:
+                               vr._n_fe + (t + 1) * vr.n_in]
+                           ).astype(np.float32)
+        state, _, st = vr.step(state, vr.put_iq(blk))
+    assert int(st["n_walked"].sum()) > 0
+    assert plsync_cuda.LAUNCHES["plsync_header"] == n0["plsync_header"] + T
+    assert plsync_cuda.LAUNCHES["plsync_payload"] == (
+        n0["plsync_payload"] + T * vr.S)

@@ -2,6 +2,8 @@
 """Device-time breakdown of the port's bare stream step on one GPU.
 
     python3 tools/torch_profile_step.py [--steps 3] [--path ccm|vcm]
+    python3 tools/torch_profile_step.py --path ccm|vcm --by-module [--root DIR]
+    python3 tools/torch_profile_step.py --path ccm --scan 8
     python3 tools/torch_profile_step.py --path host-ccm|host-acm
     python3 tools/torch_profile_step.py --path host-gardner|host-resample
 
@@ -20,6 +22,20 @@ then feeds the same stimulus through the path's engine (``StreamEngine``
 or ``VCMStreamEngine``) one step per ``receive`` call under ``cProfile``
 and prints the engine's wall time per step and the host functions by
 their own time.
+
+``--by-module`` breaks the profiled steps' device time down by module:
+the tool (not the program) wraps the step's methods and the module
+functions it calls in ``torch.profiler.record_function`` ranges
+(``MODULES_CCM`` / ``MODULES_VCM``; a name the checkout lacks is
+skipped), and each kernel's device time goes to the innermost range
+around the operator that launched it, or to "step bookkeeping" when no
+range holds it (the step's own loops and merges). Prints device ms and
+launches per step per module, and one JSON line. ``--root DIR`` imports
+the package and ``chip_smoke`` from another checkout (e.g. the parent
+unpacked under ``build/``), so two revisions are profiled by one tool.
+``--scan T`` (``ccm``) also replays ``make_scan_step(T)`` from the primed
+state (one capture, then one replay under ``torch.profiler``) and prints
+the replay's device busy time and kernel events per step.
 
 ``host-ccm`` and ``host-acm`` profile a host receiver instead: chip_smoke
 phase 7's (a) ``Receiver`` or (b) blind ``ACMReceiver`` run, whole (every
@@ -42,7 +58,46 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+
+# --by-module: (where, attribute, range name). "where" is "sr" (the
+# receiver), "sr.sync", "sr.fec" or a module of the package; a kernel's
+# time goes to the innermost range around the operator that launched it
+MODULES_CCM = (
+    ("sr", "_frontend", "front-end glue"),
+    ("sr.sync", "step_batched", "O&M timing"),
+    ("sr", "_windows", "windows"),
+    ("sr", "_lane", "lane program (PL sync + demap)"),
+    ("dvbs2rx_tpu_torch.rx.stream", "quantize_llrs", "quantize"),
+    ("sr.fec", "lane_major", "FEC (LDPC + BCH)"),
+    ("dvbs2rx_tpu_torch.rx.stream", "packet_validity", "CRC-8"),
+    ("dvbs2rx_tpu_torch.rx.stream", "_snr_refine_frames", "SNR refinement"),
+    ("sr", "_slip_metric", "slip metric"),
+)
+MODULES_VCM = (
+    ("sr", "_append_symbols", "front-end glue"),
+    ("sr.sync", "step_batched", "O&M timing"),
+    ("sr", "_walk", "VCM walk"),
+    ("dvbs2rx_tpu_torch.ops.plsync", "plheader_phase", "header phases"),
+    ("dvbs2rx_tpu_torch.ops.plsync", "coarse_autocorr", "coarse autocorr"),
+    ("dvbs2rx_tpu_torch.ops.plsync_cuda", "plheader", "PLHEADER kernel"),
+    ("sr", "_demap_lanes", "lane program (PL sync + demap)"),
+    ("sr", "_step_b", "queues + FEC"),
+    ("sr", "_fec", "FEC decode (LDPC + BCH)"),
+)
+BOOKKEEPING = "step bookkeeping"
+# The hand-written kernels are launched through ctypes with nvcc's static
+# CUDA runtime, whose launches the profiler does not tie to the operator
+# around them: their device time goes to a module by kernel name instead.
+KERNEL_MODULES = {
+    "ccm": (("mf_segmented", "O&M timing"), ("ldpc", "FEC (LDPC + BCH)"),
+            ("bch_", "FEC (LDPC + BCH)"), ("crc8", "CRC-8"),
+            ("plsync_", "lane program (PL sync + demap)")),
+    "vcm": (("mf_segmented", "O&M timing"), ("vcm_walk", "VCM walk"),
+            ("ldpc", "FEC decode (LDPC + BCH)"),
+            ("bch_", "FEC decode (LDPC + BCH)"),
+            ("plsync_header", "PLHEADER kernel"),
+            ("plsync_payload", "lane program (PL sync + demap)")),
+}
 
 
 def main():
@@ -52,9 +107,12 @@ def main():
                                        "host-gardner", "host-resample"),
                     default="ccm")
     ap.add_argument("--engine", action="store_true")
+    ap.add_argument("--by-module", action="store_true")
+    ap.add_argument("--root", default=str(ROOT))
+    ap.add_argument("--scan", type=int, default=0)
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
@@ -81,6 +139,10 @@ def main():
                                frames_per_step=chip_smoke.F, device="cuda")
         iq, _, _ = chip_smoke._vcm_stimulus(sr)
     n_steps = 2 + 2 * args.steps
+    if args.scan:
+        if args.path != "ccm":
+            raise ValueError("--scan replays the CCM step")
+        n_steps = max(n_steps, args.scan)
     if sr._n_fe + n_steps * sr.n_in > iq.shape[1]:
         raise ValueError("stimulus too short for that many steps")
     state = sr.prime(iq[:, : sr._n_fe])
@@ -90,6 +152,8 @@ def main():
         ).astype(np.float32))
         for t in range(n_steps)
     ]
+    if args.scan:
+        _scan_profile(sr, state, blocks[: args.scan])
     for t in range(2):
         state, _, _ = sr.step(state, blocks[t])
     torch.cuda.synchronize()
@@ -98,6 +162,9 @@ def main():
         state, _, _ = sr.step(state, blocks[t])
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / args.steps
+    if args.by_module:
+        _install_ranges(sr, MODULES_CCM if args.path == "ccm"
+                        else MODULES_VCM)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for t in range(2 + args.steps, n_steps):
@@ -106,11 +173,7 @@ def main():
     if not bool(st["locked"].all()) or (
             args.path == "ccm" and int(st["bch_errors"]) != 0):
         raise AssertionError("profiled steps lost lock or had BCH errors")
-    # kernels only: an operator's row repeats the time of its kernels
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = _kernel_rows(prof)
     busy = sum(r[1] for r in rows)
     if busy == 0:
         raise RuntimeError("the profiler saw no device time")
@@ -123,19 +186,130 @@ def main():
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:15]:
         print(f"  {us / 1e3:9.3f} ms {us / busy:6.1%} {n:6d} launches  "
               f"{key[:90]}")
+    if args.by_module:
+        _print_by_module(args.path, prof, args.steps, busy_ms)
     if args.engine:
         _engine_profile(args, cfg, iq, sr, n_steps)
 
 
-def _kernel_rows(prof):
-    """(name, device us, launches) of the kernel events: an operator's row
-    repeats the time of its kernels."""
+def _scan_profile(sr, primed, blocks):
+    """One make_scan_step(T) replay from the primed state under
+    torch.profiler: device busy time and kernel events per step."""
+    import json
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    T = len(blocks)
+    scan = sr.make_scan_step(T)
+    stacked = torch.stack(blocks)
+    scan(primed, stacked)                   # capture, then a replay
+    torch.cuda.synchronize()
+    for _ in range(5):      # a capture now and then records no kernel event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            scan(primed, stacked)
+            torch.cuda.synchronize()
+        rows = _kernel_rows(prof)
+        if rows:
+            break
+    else:
+        raise RuntimeError("the profiler saw no kernel of the replay")
+    busy = sum(r[1] for r in rows) / 1e3 / T
+    events = sum(r[2] for r in rows) / T
+    print(f"ccm scan replay (make_scan_step({T})): device busy {busy:.3f} "
+          f"ms/step, {events:.1f} kernel events per step")
+    print(json.dumps({"scan": {"T": T, "busy_ms_per_step": busy,
+                               "events_per_step": events}}))
+
+
+def _install_ranges(sr, modules):
+    """Wrap each (where, attribute) that exists in a record_function range
+    of its name: an instance attribute on the receiver's objects, a module
+    attribute on a module (looked up at call time by its callers)."""
+    import functools
+    import importlib
+
+    import torch
+
+    def wrap(fn, name):
+        @functools.wraps(fn)
+        def ranged(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return ranged
+
+    for where, attr, name in modules:
+        if where.startswith("sr"):
+            obj = sr
+            for part in where.split(".")[1:]:
+                obj = getattr(obj, part)
+        else:
+            try:
+                obj = importlib.import_module(where)
+            except ImportError:
+                continue
+        if hasattr(obj, attr):
+            setattr(obj, attr, wrap(getattr(obj, attr), name))
+
+
+def _print_by_module(path, prof, steps, busy_ms):
+    """Device time and launches per step of each range (innermost range
+    around the launching operator), the rest as step bookkeeping; the
+    kernels the profiler ties to no operator by name (KERNEL_MODULES)."""
+    import json
+
     from torch.autograd import DeviceType
 
+    names = {n for _, _, n in (MODULES_CCM + MODULES_VCM)}
+    ms, launches = {}, {}
+
+    def add(owner, us, n):
+        ms[owner] = ms.get(owner, 0.0) + us / 1e3 / steps
+        launches[owner] = launches.get(owner, 0) + n / steps
+
+    tied = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        owner, up = BOOKKEEPING, ev
+        while up is not None:
+            if up.name in names:
+                owner = up.name
+                break
+            up = up.cpu_parent
+        add(owner, sum(k.duration for k in ev.kernels), len(ev.kernels))
+        for k in ev.kernels:
+            tied[k.name] = tied.get(k.name, 0) + 1
+    for key, us, n in _kernel_rows(prof):
+        left = n - tied.get(key, 0)
+        if left <= 0:
+            continue
+        owner = next((m for pre, m in KERNEL_MODULES[path] if pre in key),
+                     "untied kernels")
+        add(owner, us * left / n, left)
+    total = sum(ms.values())
+    print(f"{path} by module: device ms and kernel launches per step "
+          f"(attributed {total:.3f} of {busy_ms:.3f} busy ms)")
+    for name in sorted(ms, key=lambda n: -ms[n]):
+        print(f"  {ms[name]:9.3f} ms {ms[name] / total:6.1%} "
+              f"{launches[name]:7.1f} launches  {name}")
+    print(json.dumps({"by_module": {
+        "path": path, "busy_ms": busy_ms, "attributed_ms": total,
+        "modules": {n: {"ms": ms[n], "launches": launches[n]}
+                    for n in ms}}}))
+
+
+def _kernel_rows(prof):
+    """(name, device us, launches) of the kernel events: an operator's row
+    repeats the time of its kernels, and a --by-module range's device-side
+    annotation the time of the kernels inside it."""
+    from torch.autograd import DeviceType
+
+    ranges = {n for _, _, n in (MODULES_CCM + MODULES_VCM)}
     return [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key not in ranges]
 
 
 def _host_profile(path):
