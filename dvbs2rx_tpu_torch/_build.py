@@ -35,6 +35,9 @@ _L = ctypes.c_longlong
 # argtypes of every C entry point: c_void_p for each pointer and the
 # stream, c_int for each int (ctypes would otherwise cut a pointer to 32
 # bits), c_longlong for each long long, c_float for each float
+# the payload's two kernels take the same arguments
+_PAYLOAD_ARGS = ([_P] * 14 + [_I] * 2 + [_L] * 5 + [_I] * 6 + [_L] * 2
+                 + [_I] * 2 + [_F] + [_I] * 7 + [_P])
 _SIGNATURES = {
     "bch_locator_launch": [_P] * 9 + [_I] * 7 + [_P],
     "bch_chien_launch": [_P] * 6 + [_I] * 2 + [_P] + [_I] * 4 + [_P],
@@ -48,8 +51,8 @@ _SIGNATURES = {
     "ldpc_layered_smem_bytes": [_I] * 4,
     "vcm_walk_launch": [_P] * 18 + [_I] * 5 + [_P],
     "plsync_header_launch": [_P] * 9 + [_I] * 3 + [_L] * 4 + [_I] * 2 + [_P],
-    "plsync_payload_launch": ([_P] * 13 + [_I] * 2 + [_L] * 5 + [_I] * 6
-                              + [_L] * 2 + [_I] * 2 + [_F] + [_I] * 3 + [_P]),
+    "plsync_stats_launch": _PAYLOAD_ARGS,
+    "plsync_demap_launch": _PAYLOAD_ARGS,
 }
 
 _lock = threading.Lock()

@@ -4,25 +4,33 @@ The JAX package runs a lane's PLFRAME processing (``make_lane_fn``,
 ``dvbs2rx_tpu/parallel/batch.py:51-101``; the VCM ``_lane_fn``,
 ``dvbs2rx_tpu/rx/vcm_stream.py:471-520``) as one vmapped closure that XLA
 fuses, with no Pallas kernel; the port's plain versions here run it as
-~110 small launches a step. ``csrc/plsync.cu`` does it in two kernels
+~110 small launches a step. ``csrc/plsync.cu`` does it in three kernels
 (its source note says how, and what bounds them):
 
-- ``plheader``: per header, the modulation-removed data-aided phase of the
-  90 symbols and of the last 36 (the pilot-mode tail), optionally the
-  frame metric and the coarse-CFO autocorrelation of the first N = 90 or 26
-  symbols (``plsync.coarse_autocorr`` on a CUDA tensor launches it);
+- ``plheader`` (``plsync_header_kernel``): per header, the
+  modulation-removed data-aided phase of the 90 symbols and of the last
+  36 (the pilot-mode tail), optionally the frame metric and the coarse-CFO
+  autocorrelation of the first N = 90 or 26 symbols
+  (``plsync.coarse_autocorr`` on a CUDA tensor launches it);
 - ``payload``: per lane, in place from a symbol buffer at a per-lane start,
   the descrambling, pilot phases, fine CFO, derotation, data-aided SNR, N0,
   demap, quantization and deinterleave, writing int8 LLRs through the
   caller's (position, lane) strides, and the corrected symbols only of the
-  lanes a caller reads; with a lane mask, only the selected lanes.
+  lanes a caller reads; with a lane mask, only the selected lanes. Two
+  launches split at the SNR: ``plsync_stats_kernel`` over (lane, one of
+  ``STATS_CHUNKS`` chunks of its data symbols) writes partial sums to a
+  scratch buffer (``payload_scratch``: one per device and lane count,
+  kept), and ``plsync_demap_kernel`` over tiles of 32 lanes x
+  ``tile_syms`` symbols reduces them and demaps (``launch_plan`` mirrors
+  the launch geometry).
 
 Each dispatches by device: CPU tensors take the plain version
 (``plheader_plain``, ``payload_plain``, composed of ``ops.plsync`` and
-``ops.demap``: the same contract), CUDA tensors launch the kernel or
+``ops.demap``: the same contract), CUDA tensors launch the kernels or
 raise. The wrappers read nothing back and copy nothing from the host
-(constants come through ``utils.runtime.device_table``), so a CUDA graph
-can hold them.
+(constants come through ``utils.runtime.device_table``; the scratch is
+made at a lane count's first call, which must come before any graph
+capture), so a CUDA graph can hold them.
 """
 
 import functools
@@ -46,15 +54,19 @@ from .demap import (
 )
 
 # kernel launches by kernel; incremented only where a kernel runs
-LAUNCHES = {"plsync_header": 0, "plsync_payload": 0}
-# the same launches by layout: (kernel, *the arguments' shapes, strides and
-# options), as ``_header_layout`` and ``_payload_layout`` name them
+LAUNCHES = {"plsync_header": 0, "plsync_stats": 0, "plsync_demap": 0}
+# the calls by layout: (call, *the arguments' shapes, strides and options),
+# as ``_header_layout`` and ``_payload_layout`` name them; a ``payload``
+# call (its two launches) counts once under "plsync_payload"
 LAUNCH_SHAPES = {}
+_LAYOUT_OF = {"plsync_header": "plsync_header",
+              "plsync_stats": "plsync_payload",
+              "plsync_demap": "plsync_payload"}
 
 
 def _reset_counts(kernel):
     LAUNCHES[kernel] = 0
-    for key in [k for k in LAUNCH_SHAPES if k[0] == kernel]:
+    for key in [k for k in LAUNCH_SHAPES if k[0] == _LAYOUT_OF[kernel]]:
         del LAUNCH_SHAPES[key]
 
 
@@ -63,8 +75,7 @@ for _k in LAUNCHES:
                             functools.partial(_reset_counts, _k))
 
 
-def _count(key):
-    LAUNCHES[key[0]] += 1
+def _count_layout(key):
     LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
@@ -117,6 +128,10 @@ def _same_view(views, what):
                 or v.dtype != v0.dtype or v.device != v0.device:
             raise ValueError(f"{what}: the views must share shape, strides, "
                              f"type and device")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _lane_vec(x, B, dtype, what, dev):
@@ -186,6 +201,14 @@ def plheader(hdrs, pls, n_auto=0, metric=False):
                              f"takes contiguous (1,) or ({B},) int64 on {dev}")
     if not hdrs[0].is_cuda:
         return plheader_plain(hdrs, pls, n_auto, metric)
+    return _launch_header(hdrs, pls, n_auto, metric)
+
+
+def _launch_header(hdrs, pls, n_auto, metric):
+    """``plheader``'s kernel launch on checked arguments."""
+    X, Y = hdrs[0].shape[:2]
+    B, J = X * Y, len(hdrs)
+    dev, n_pls = hdrs[0].device, pls[0].shape[0]
     sx, sy, sn, sc = hdrs[0].stride()
     out = {
         "phase": torch.empty((B, J, 2), dtype=torch.float32, device=dev),
@@ -196,18 +219,15 @@ def plheader(hdrs, pls, n_auto=0, metric=False):
     }
     lut = device_table(plsync.plheader_conj_lut(), dev)
     taps = device_table(header_taps(), dev)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
     err = _build.lib().plsync_header_launch(
         hdrs[0].data_ptr(), hdrs[-1].data_ptr(), pls[0].data_ptr(),
         pls[-1].data_ptr(), lut.data_ptr(), taps.data_ptr(),
-        out["phase"].data_ptr(), ptr(out["metric"]), ptr(out["autocorr"]),
+        out["phase"].data_ptr(), _ptr(out["metric"]), _ptr(out["autocorr"]),
         B, J, Y, sx, sy, sn, sc, int(n_pls == B), n_auto,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "plsync_header_kernel")
-    _count(_header_layout(hdrs, n_pls, n_auto, metric))
+    LAUNCHES["plsync_header"] += 1
+    _count_layout(_header_layout(hdrs, n_pls, n_auto, metric))
     return out
 
 
@@ -224,6 +244,69 @@ def coarse_autocorr_cuda(plheader_t, plsc, full=True):
 
 # ---------------- payload ----------------
 
+# the payload kernels' launch geometry (csrc/plsync.cu's constants)
+STATS_CHUNKS = 10           # statistics blocks a lane: at 5 resident an SM
+                            # (660 on an H100's 132 SMs), the CCM step's
+                            # 128 lanes and the VCM step's ~64 selected make
+                            # ~2 and ~1 full waves, not a sliver of a last
+MAX_CHUNKS = 16             # chunks a lane at most (the scratch's room)
+LANE_FLOATS = 2 + 22        # scratch a lane: fine, 2 pi x gated fine,
+                            # the pilot-block phases
+TILE_LANES = 32             # a demap block's lanes
+
+
+def tile_syms(n_mod):
+    """A demap block's data symbols: 256, or 128 at 4-5 bits a symbol (its
+    stage holds n_mod bytes a symbol and lane)."""
+    return 256 if n_mod <= 3 else 128
+
+
+def scratch_float64(B):
+    """The scratch's float64 elements for B lanes: the (B, MAX_CHUNKS, 2)
+    SNR sums, then LANE_FLOATS float32 a lane."""
+    return B * (MAX_CHUNKS * 2 + LANE_FLOATS // 2)
+
+
+def launch_plan(B, R, n_mod, order, l_pos, l_lane):
+    """The payload's two launches for B lanes of R data symbols (n_mod
+    bits each; ``order`` the column-order word, < 0 uninterleaved) into
+    LLRs of strides (l_pos, l_lane), as ``csrc/plsync.cu`` runs them:
+    grids, the scratch (float64 elements), the demap tile's stage rows
+    and which stride its write-out runs along ("lane": one warp store is
+    32 lanes' bytes of one position; "position": consecutive positions of
+    one lane)."""
+    chunk = -(-R // STATS_CHUNKS)
+    chunks = -(-R // chunk)
+    return {
+        "chunk": chunk, "chunks": chunks,
+        "stats_grid": (B, chunks),
+        "demap_grid": (-(-B // TILE_LANES), -(-R // tile_syms(n_mod))),
+        "tile_syms": tile_syms(n_mod),
+        "scratch_float64": scratch_float64(B),
+        "stage_rows": n_mod * tile_syms(n_mod),
+        "runs": n_mod if order >= 0 else 1,
+        "write_along": "lane" if l_lane == 1 and B > 1 else "position",
+    }
+
+
+_SCRATCH = {}       # (device, B) -> the payload kernels' scratch
+
+
+def payload_scratch(B, dev):
+    """The payload kernels' scratch for B lanes on ``dev``: made at the
+    first call (which must come before any CUDA graph capture that holds a
+    launch at this B), then kept; launches on one stream use it in turn."""
+    key = (str(dev), B)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("plsync payload: the first call at a lane "
+                               "count must come before a graph capture")
+        buf = _SCRATCH[key] = torch.empty((scratch_float64(B),),
+                                          dtype=torch.float64, device=dev)
+    return buf
+
+
 def _payload_windows(sym, start, clamp_len, Lp):
     """(B, Lp, 2): each lane's payload rows from its start, clamped into
     [0, rows - clamp_len] (the plain version's gather)."""
@@ -237,13 +320,15 @@ def _payload_windows(sym, start, clamp_len, Lp):
     return torch.gather(flat, 1, idx[..., None].expand(B, Lp, 2))
 
 
+# a test hook: a list that ``payload_plain`` appends each call's float
+# LLRs (B, N), before quantization, and lane mask (B,) to; None: off
+FLOAT_LLRS = None
+
+
 def payload_plain(sym, start, clamp_len, descr, ph, cc, n0_ov, info,
                   constellation, rate, llr_out, fine_out, n0_out, sel=None,
-                  x_out=None, x_every=1, x_scale=1.0, n0_use=False,
-                  want_float=False):
-    """Plain PyTorch version of ``payload`` (the same contract); with
-    ``want_float`` it also returns the float LLRs (B, N) before
-    quantization."""
+                  x_out=None, x_every=1, x_scale=1.0, n0_use=False):
+    """Plain PyTorch version of ``payload`` (the same contract)."""
     B = sym.shape[0] * sym.shape[1]
     pay = _payload_windows(sym, start, clamp_len, info.payload_len)
     p = cplx.cmul(pay, descr[: info.payload_len])
@@ -268,6 +353,8 @@ def payload_plain(sym, start, clamp_len, descr, ph, cc, n0_ov, info,
     llr = demap(xfec, n0u, constellation, rate, quantize=False)   # (B, N)
     m = (torch.ones((B,), dtype=torch.bool, device=sym.device)
          if sel is None else sel)
+    if FLOAT_LLRS is not None:
+        FLOAT_LLRS.append((llr, m))
     dst = llr_out[: llr.shape[1]]
     dst.copy_(torch.where(m[None], quantize_llrs(llr).t(), dst))
     fine_out.copy_(torch.where(m, fine, fine_out))
@@ -275,12 +362,11 @@ def payload_plain(sym, start, clamp_len, descr, ph, cc, n0_ov, info,
     if x_out is not None:
         xs = xfec[::x_every, : x_out.shape[1]] * x_scale
         x_out.copy_(torch.where(m[::x_every, None, None], xs, x_out))
-    return llr if want_float else None
 
 
 def _payload_layout(sym, start, clamp_len, info, llr_out, sel, x_out,
                     x_every, x_scale, n0_use):
-    """``payload``'s launch layout: (kernel, PLS, X, Y, rows, the symbol
+    """``payload``'s launch layout: (call, PLS, X, Y, rows, the symbol
     buffer's strides, clamp_len, per-lane starts, the LLR view's rows and
     strides, lane mask, x_every, x_len, x_scale, n0_use)."""
     return ("plsync_payload", info.plsc, *sym.shape[:3], *sym.stride(),
@@ -292,7 +378,7 @@ def _payload_layout(sym, start, clamp_len, info, llr_out, sel, x_out,
 
 def payload(sym, start, clamp_len, descr, ph, cc, n0_ov, info, constellation,
             rate, llr_out, fine_out, n0_out, sel=None, x_out=None, x_every=1,
-            x_scale=1.0, n0_use=False, want_float=False):
+            x_scale=1.0, n0_use=False):
     """Payload processing of B = X Y lanes of one PLS geometry, in place.
 
     sym (X, Y, rows, 2) float32, each lane's symbol buffer (a view; lane
@@ -308,9 +394,8 @@ def payload(sym, start, clamp_len, descr, ph, cc, n0_ov, info, constellation,
     (ungated) in ``fine_out[b]``, the data-aided N0 (or, with ``n0_use``,
     the N0 it demapped with) in ``n0_out[b]``, and, for lanes b = k x_every,
     the first x_len corrected symbols x ``x_scale`` in ``x_out[k]`` ((B /
-    x_every, x_len, 2) float32). On CPU tensors the plain version runs,
-    and ``want_float`` also returns its float LLRs (B, N); on the card
-    returns None."""
+    x_every, x_len, 2) float32). On CPU tensors the plain version runs;
+    on the card the statistics and demap kernels, one launch each."""
     _same_view([sym], "sym")
     X, Y, rows, _ = sym.shape
     B = X * Y
@@ -354,31 +439,41 @@ def payload(sym, start, clamp_len, descr, ph, cc, n0_ov, info, constellation,
     n0_ov = _lane_vec(n0_ov, B, torch.float32, "n0_override", dev)
     if sel is not None:
         sel = _lane_vec(sel, B, torch.bool, "sel", dev)
-    if not sym.is_cuda:
-        return payload_plain(sym, start, clamp_len, descr, ph, cc, n0_ov,
-                             info, constellation, rate, llr_out, fine_out,
-                             n0_out, sel, x_out, x_every, x_scale, n0_use,
-                             want_float)
+    fn = _launch_payload if sym.is_cuda else payload_plain
+    fn(sym, start, clamp_len, descr, ph, cc, n0_ov, info, constellation,
+       rate, llr_out, fine_out, n0_out, sel, x_out, x_every, x_scale, n0_use)
+
+
+def _launch_payload(sym, start, clamp_len, descr, ph, cc, n0_ov, info,
+                    constellation, rate, llr_out, fine_out, n0_out, sel,
+                    x_out, x_every, x_scale, n0_use):
+    """``payload``'s two kernel launches on checked arguments."""
+    X, Y, rows, _ = sym.shape
+    B, dev = X * Y, sym.device
+    Lp, n_mod, R = info.payload_len, info.n_mod, info.n_slots * 90
     ph = ph.contiguous()
+    scratch = payload_scratch(B, dev)
+    order = _order_word(constellation, rate)
+    l_pos, l_lane = llr_out.stride()
+    plan = launch_plan(B, R, n_mod, order, l_pos, l_lane)
     kc = device_table(payload_constants(info.plframe_len, info.n_pilots), dev)
     pts = (None if constellation == "QPSK" else
            device_table(_points(constellation, rate), dev).data_ptr())
-    sx, sy, sn, sc = sym.stride()
-    l_pos, l_lane = llr_out.stride()
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    err = _build.lib().plsync_payload_launch(
-        sym.data_ptr(), ptr(start), descr.data_ptr(), ph.data_ptr(),
-        cc.data_ptr(), n0_ov.data_ptr(), ptr(sel), pts, kc.data_ptr(),
-        llr_out.data_ptr(), ptr(x_out), fine_out.data_ptr(),
-        n0_out.data_ptr(), B, Y, sx, sy, sn, sc, rows, clamp_len, Lp,
-        info.n_pilots, R, n_mod, _order_word(constellation, rate), l_pos,
-        l_lane, x_every, 0 if x_out is None else x_out.shape[1],
-        float(x_scale), int(n0_use), KINDS[constellation],
-        N_POINTS[constellation], torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "plsync_payload_kernel")
-    _count(_payload_layout(sym, start, clamp_len, info, llr_out, sel, x_out,
-                           x_every, x_scale, n0_use))
-    return None
+    args = (sym.data_ptr(), _ptr(start), descr.data_ptr(),
+            ph.data_ptr(), cc.data_ptr(), n0_ov.data_ptr(),
+            _ptr(sel), pts, kc.data_ptr(), llr_out.data_ptr(), _ptr(x_out),
+            fine_out.data_ptr(), n0_out.data_ptr(),
+            scratch.data_ptr(), B, Y, *sym.stride(), rows,
+            clamp_len, Lp, info.n_pilots, R, n_mod, order, l_pos, l_lane,
+            x_every, 0 if x_out is None else x_out.shape[1], float(x_scale),
+            int(n0_use), plan["chunk"], plan["chunks"], plan["tile_syms"],
+            int(plan["write_along"] == "lane"), KINDS[constellation],
+            N_POINTS[constellation],
+            torch.cuda.current_stream(dev).cuda_stream)
+    lib = _build.lib()
+    _build.check(lib.plsync_stats_launch(*args), "plsync_stats_kernel")
+    LAUNCHES["plsync_stats"] += 1
+    _build.check(lib.plsync_demap_launch(*args), "plsync_demap_kernel")
+    LAUNCHES["plsync_demap"] += 1
+    _count_layout(_payload_layout(sym, start, clamp_len, info, llr_out, sel,
+                                  x_out, x_every, x_scale, n0_use))

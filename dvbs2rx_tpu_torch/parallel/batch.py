@@ -60,9 +60,9 @@ def make_lane_fn(cfg, descr):
     Returns a dict with metric (B, 2), autocorr (B, 89, 2), fine (B,), n0
     (B,), llrs (N, B) int8 (lane-major, the FEC stage's layout) and, with
     ``x_every`` > 0, x0 (B / x_every, R, 2) the corrected symbols of lanes
-    0, x_every, ... (frame 0 of each channel). Two launches on the card
-    (``ops.plsync_cuda``: the PLHEADER and payload kernels); their plain
-    versions on the CPU.
+    0, x_every, ... (frame 0 of each channel). Three launches on the card
+    (``ops.plsync_cuda``: the PLHEADER kernel, then the payload's
+    statistics and demap kernels); their plain versions on the CPU.
     """
     info = cfg.pls_info
     pls_tab = np.array([cfg.pls], np.int64)

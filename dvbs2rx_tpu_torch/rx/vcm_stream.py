@@ -53,7 +53,6 @@ import torch.nn.functional as Fn
 from ..convert import vcm_state_from_numpy
 from ..ops import cplx, plsync, plsync_cuda
 from ..ops.crc8_dev import packet_validity
-from ..ops.demap import quantize_llrs
 from ..ops.ffsync import FeedForwardSync
 from ..ops.frontend import rotate_block
 from ..ops.vcm_walk_cuda import vcm_walk
@@ -353,29 +352,23 @@ class VCMStreamReceiver(StreamFrontEnd):
         overrides the data-aided one). Writes the selected lanes' int8 LLRs
         into llr8 (B, n_ldpc), their symbol snapshot x XF_SCALE into xf (B,
         2 R_SUB), the fine CFO into fine and the N0 demapped with into n0
-        (B,); on the card one launch of the payload kernel. On the CPU
-        (the plain version) also returns the lanes' float LLRs (B, n_ldpc),
-        zero-padded."""
-        info, fec = self._infos[si], self._fecs[si]
+        (B,); on the card the payload's statistics and demap kernels, one
+        launch each; on the CPU their plain version."""
+        info = self._infos[si]
         const, rate = _MODCODS[info.modcod]
-        llr = plsync_cuda.payload(
+        plsync_cuda.payload(
             sym, start, self.Lp_max, self._descr, ph, corrected, n0_ov, info,
             const, rate, llr8.t(), fine, n0, sel=sel,
             x_out=xf.view(-1, self.R_SUB, 2), x_scale=self.XF_SCALE,
-            n0_use=True, want_float=not sym.is_cuda)
-        if llr is not None and fec.nldpc < self.n_ldpc:
-            llr = Fn.pad(llr, (0, self.n_ldpc - fec.nldpc))
-        return llr
+            n0_use=True)
 
     def _step_a(self, state, iq):
         """Front end, walk, lane compaction, per-PLS demap and selection,
         lock upkeep, coarse CFO and the rotator. Returns (state', llr (B,
-        n_ldpc) float32, xf (B, 2 R_SUB) float32 scaled symbol snapshots,
-        meta (B, 2) int32 (channel, seq), sels (S, B) bool, stats); lane
-        b = c * F_pay + f. On the card llr is int8, as the payload kernel
-        writes it (the JAX step returns llr and xf quantized); on the CPU
-        it is the float values, which ``_step_b`` quantizes (the same
-        int8 values)."""
+        n_ldpc) int8, as the payload kernels write it, xf (B, 2 R_SUB)
+        float32 scaled symbol snapshots, meta (B, 2) int32 (channel, seq),
+        sels (S, B) bool, stats); lane b = c * F_pay + f (the JAX step
+        returns llr and xf quantized)."""
         cfg = self.cfg
         C, K, FP, B = self.n_channels, self.K_max, self.F_pay, self.B_lanes
         dev = iq.device
@@ -436,19 +429,13 @@ class VCMStreamReceiver(StreamFrontEnd):
         xf = torch.zeros((B, self.R_SUB * 2), device=dev)
         fine = torch.zeros((B,), device=dev)
         n0 = torch.zeros((B,), device=dev)
-        llr = None if symbuf.is_cuda else torch.zeros((B, self.n_ldpc),
-                                                      device=dev)
         sels = []
         for si in range(self.S):
             n0_ov = state["n0_refined"][:, si].repeat_interleave(FP)
             sel = valid_l & (pls_l == self.pls_set[si])
             sels.append(sel)
-            l_s = self._demap_lanes(si, sym, start_l, ph_l, corrected_l,
-                                    n0_ov, sel, llr8, xf, fine, n0)
-            if llr is not None:
-                llr = torch.where(sel[:, None], l_s, llr)
-        if llr is None:
-            llr = llr8
+            self._demap_lanes(si, sym, start_l, ph_l, corrected_l, n0_ov, sel,
+                              llr8, xf, fine, n0)
         meta = torch.stack([
             torch.arange(C, device=dev, dtype=torch.int32).repeat_interleave(
                 FP),
@@ -546,7 +533,7 @@ class VCMStreamReceiver(StreamFrontEnd):
             "overflow": overflow,
             "underflow": underflow,
         }
-        return new_state, llr, xf, meta, sels, stats
+        return new_state, llr8, xf, meta, sels, stats
 
     def _append(self, state, si, llr8, xf8, meta, sel):
         """Append the lanes selected for PLS ``si`` to its queue, in lane
@@ -625,21 +612,17 @@ class VCMStreamReceiver(StreamFrontEnd):
         return st, outputs, dict(stats, **stats_b)
 
     @staticmethod
-    def quantize(llr, xf):
-        """Step A's lanes -> the int8 queue contents: LLRs (those that
-        arrive as int8 from the payload kernel as they are; float values
-        rounded half to even and clipped to int8) and the symbol snapshots
-        (rounded half to even, clipped to +-127)."""
-        if llr.dtype != torch.int8:
-            llr = quantize_llrs(llr)
-        return llr, torch.round(xf).clamp(-127, 127).to(torch.int8)
+    def quantize_snapshots(xf):
+        """Step A's symbol snapshots -> the int8 queue contents (rounded
+        half to even, clipped to +-127); its LLRs arrive as int8."""
+        return torch.round(xf).clamp(-127, 127).to(torch.int8)
 
     def _step_b(self, st, llr, xf, meta, sels):
         """Every PLS's queue append, pooled drain of full batches and
         refined-N0 update."""
         B_fec = self.B_fec
-        llr8, xf8 = self.quantize(llr, xf)
-        queues = [self._append(st, si, llr8, xf8, meta, sels[si])
+        xf8 = self.quantize_snapshots(xf)
+        queues = [self._append(st, si, llr, xf8, meta, sels[si])
                   for si in range(self.S)]
         # the one readback of the step: how many full batches each queue has
         fills = torch.stack([q[3] for q in queues]).cpu().numpy()

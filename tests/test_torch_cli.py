@@ -308,7 +308,8 @@ def test_debug_log_names_no_kernel_launch_on_the_cpu(caplog, capsys,
     assert json.loads(launches[-1].split(" ", 2)[2]) == {
         "mf_segmented": 0, "gardner": 0, "ldpc_layered": 0,
         "bch_locator": 0, "bch_chien": 0, "crc8_validity": 0,
-        "vcm_walk": 0, "plsync_header": 0, "plsync_payload": 0}
+        "vcm_walk": 0, "plsync_header": 0, "plsync_stats": 0,
+        "plsync_demap": 0}
     assert json.loads(shapes[-1].split(" ", 2)[2]) == {
         "mf_segmented": [], "ldpc_layered": [], "plsync": []}
     stats = json.loads(capsys.readouterr().err.strip().splitlines()[-1])

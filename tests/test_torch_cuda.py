@@ -36,8 +36,8 @@ from dvbs2rx_tpu_torch.rx.receiver import RxConfig
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
 
 from chip_smoke import (WALK_MODES, WALK_TOL, _gardner_waveform,
-                        _make_vcm_stimulus, _plsync_small, _walk_diff,
-                        _walk_states)
+                        _make_vcm_stimulus, _payload_case, _plheader_case,
+                        _plsync_small, _walk_diff, _walk_states)
 
 pytestmark = pytest.mark.cuda
 
@@ -1092,8 +1092,8 @@ def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     scan = sr.make_scan_step(3)
     before = launch_counts()
     out = scan(primed, blocks)
-    step_kernels = ("mf_segmented", "plsync_header", "plsync_payload",
-                    "ldpc_layered", "bch_locator", "bch_chien",
+    step_kernels = ("mf_segmented", "plsync_header", "plsync_stats",
+                    "plsync_demap", "ldpc_layered", "bch_locator", "bch_chien",
                     "crc8_validity")
     assert scan.launches_per_call == {
         k: 3 if k in step_kernels else 0 for k in before}
@@ -1550,7 +1550,8 @@ def test_plsync_kernels_match_plain(card, modcod, pilots):
     n0 = dict(plsync_cuda.LAUNCHES)
     rec = _plsync_small(card.type, [(modcod, pilots)])
     assert plsync_cuda.LAUNCHES["plsync_header"] == n0["plsync_header"] + 1
-    assert plsync_cuda.LAUNCHES["plsync_payload"] == n0["plsync_payload"] + 2
+    for k in ("plsync_stats", "plsync_demap"):
+        assert plsync_cuda.LAUNCHES[k] == n0[k] + 2
     (r,) = rec.values()
     assert r["payload"]["llr_ties"] <= 1e-3 * r["payload"]["llrs"]
 
@@ -1618,9 +1619,9 @@ def test_plsync_wrappers_raise_on_the_card(card):
 
 
 def test_steps_on_card_never_run_the_plain_lane_program(card, monkeypatch):
-    """A CCM step and a VCM step on the card go through the PLHEADER and
-    payload kernels and never through their plain versions (patched to
-    raise)."""
+    """A CCM step and a VCM step on the card go through the PLHEADER,
+    statistics and demap kernels (one each a CCM step; 1 + 2 S a VCM
+    step) and never through their plain versions (patched to raise)."""
     from dvbs2rx_tpu_torch.ops import plsync, plsync_cuda
     from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
 
@@ -1648,7 +1649,8 @@ def test_steps_on_card_never_run_the_plain_lane_program(card, monkeypatch):
         state, _, st = sr.step(state, sr.put_iq(blk))
     assert bool(st["locked"].all()) and int(st["bch_errors"]) == 0
     assert plsync_cuda.LAUNCHES["plsync_header"] == n0["plsync_header"] + T
-    assert plsync_cuda.LAUNCHES["plsync_payload"] == n0["plsync_payload"] + T
+    for k in ("plsync_stats", "plsync_demap"):
+        assert plsync_cuda.LAUNCHES[k] == n0[k] + T
     vcfg, viq = _vcm_case([0, 1], 300)
     vr = VCMStreamReceiver(vcfg, 2, 2, fec_lanes=8, device=card)
     state = vr.prime(viq[:, : vr._n_fe])
@@ -1660,5 +1662,149 @@ def test_steps_on_card_never_run_the_plain_lane_program(card, monkeypatch):
         state, _, st = vr.step(state, vr.put_iq(blk))
     assert int(st["n_walked"].sum()) > 0
     assert plsync_cuda.LAUNCHES["plsync_header"] == n0["plsync_header"] + T
-    assert plsync_cuda.LAUNCHES["plsync_payload"] == (
-        n0["plsync_payload"] + T * vr.S)
+    for k in ("plsync_stats", "plsync_demap"):
+        assert plsync_cuda.LAUNCHES[k] == n0[k] + T * vr.S
+
+
+def _lane_symbols(rng, n_mod, shape):
+    """Seeded noisy symbols of a 2^n_mod-PSK grid, float32 (..., 2)."""
+    m = 1 << n_mod
+    ang = 2 * np.pi * rng.integers(0, m, shape) / m + np.pi / m
+    x = np.stack([np.cos(ang), np.sin(ang)], -1)
+    return (x + rng.normal(0, 0.1, x.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mask", ["every", "tiles"])
+@pytest.mark.parametrize("layout,C,F", [("lane-major", 37, 1),
+                                        ("rows", 100, 2),
+                                        ("permuted", 20, 10)])
+@pytest.mark.parametrize("modcod", ["qpsk1/2", "16apsk2/3"])
+def test_plsync_payload_kernels_at_layouts(card, modcod, layout, C, F,
+                                           mask):
+    """The statistics and demap kernels against the plain version (phase
+    14's checks, ``_payload_case``) at B = C F not a multiple of 32: the
+    lane-major (N, B) LLRs from per-lane starts into one buffer, VCM's (B,
+    N + 64) rows, and ``BatchedPipeline``'s permuted lane-major payload
+    view (component stride C F); every lane, or a mask that empties a
+    whole 32-lane tile and thins the rest."""
+    from dvbs2rx_tpu_torch.ops import plsync_cuda
+    from dvbs2rx_tpu_torch.spec.scramblers import pl_descrambling_sequence
+
+    cfg = RxConfig(modcod=modcod, frame_size="short", pilots=True)
+    info = cfg.pls_info
+    Lp, R, B = info.payload_len, info.n_slots * 90, C * F
+    N = R * info.n_mod
+    rng = np.random.default_rng(B + info.n_mod)
+    if layout == "permuted":
+        pay = torch.as_tensor(_lane_symbols(rng, info.n_mod, (C, F, Lp))
+                              .transpose(2, 3, 0, 1).copy(), device=card)
+        sym, start, rows = pay.permute(2, 3, 0, 1), None, Lp
+        assert sym.stride() == (F, 1, 2 * C * F, C * F)
+    else:
+        rows = Lp + 3000
+        buf = torch.as_tensor(_lane_symbols(rng, info.n_mod, (C, rows)),
+                              device=card)
+        sym = buf[:, None].expand(C, F, rows, 2)
+        start = torch.as_tensor(rng.integers(-50, rows - Lp + 50, B),
+                                device=card)
+    sel = None
+    if mask == "tiles":
+        m = rng.random(B) < 0.6
+        m[32:64] = False
+        sel = torch.as_tensor(m, device=card)
+    llr = (torch.empty((N, B), dtype=torch.int8, device=card)
+           if layout != "rows" else
+           torch.empty((B, N + 64), dtype=torch.int8, device=card).t())
+    kw = dict(sym=sym, start=start, clamp_len=Lp,
+              descr=torch.as_tensor(cplx.from_np(pl_descrambling_sequence(
+                  cfg.gold_code)[:Lp]).astype(np.float32), device=card),
+              ph=torch.as_tensor(rng.uniform(-3, 3, (B, 2, 2)).astype(
+                  np.float32), device=card),
+              cc=torch.as_tensor(rng.random(B) < 0.7, device=card),
+              n0_ov=torch.as_tensor(np.where(rng.random(B) < 0.3, 0.1, -1.0)
+                                    .astype(np.float32), device=card),
+              info=info, constellation=cfg.constellation, rate=cfg.rate,
+              llr_out=llr, sel=sel, x_every=F,
+              x_out=torch.empty((C, 300, 2), device=card))
+    plan = plsync_cuda.launch_plan(B, R, info.n_mod, 0, *llr.stride())
+    assert plan["write_along"] == ("position" if layout == "rows"
+                                   else "lane")
+    rec = _payload_case(f"{layout} B = {B}", "cuda", kw)
+    assert rec["selected"] == (B if sel is None else int(sel.sum()))
+    assert rec["llr_ties"] <= 1e-3 * max(rec["llrs"], 1)
+
+
+def test_plheader_kernel_at_the_vcm_slots(card):
+    """The PLHEADER kernel over 1,344 x 2 headers (the VCM step's 21 slots
+    of 64 channels: own and next, a PLS each, the full autocorrelation),
+    with and without the metric, against its plain version within phase
+    14's tolerances; one launch each."""
+    rng = np.random.default_rng(1344)
+    hdr = torch.as_tensor(rng.normal(size=(21, 64, 2, 90, 2)).astype(
+        np.float32), device=card)
+    pls = [torch.as_tensor(rng.integers(0, 128, 21 * 64), device=card)
+           for _ in range(2)]
+    for metric in (False, True):
+        rec = _plheader_case("vcm slots", "cuda",
+                             [hdr[:, :, 0], hdr[:, :, 1]], pls, 90, metric)
+        assert rec["phase_err"] <= 1e-5
+
+
+def test_ccm_lane_program_replays_identical_bytes_in_a_graph(card):
+    """The CCM lane program (PLHEADER, statistics, demap) captured in a
+    CUDA graph after one eager call: the capture allocates no scratch,
+    two replays write the same bytes as each other and as the eager call
+    (the fixed-order double sums), and the outputs hold phase 14's
+    checks against the plain version."""
+    from dvbs2rx_tpu_torch.ops import plsync_cuda
+    from dvbs2rx_tpu_torch.parallel.batch import make_lane_fn
+    from dvbs2rx_tpu_torch.spec.scramblers import pl_descrambling_sequence
+
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
+    info = cfg.pls_info
+    C, F, L = 8, 2, info.plframe_len
+    rng = np.random.default_rng(64)
+    buf = torch.as_tensor(_lane_symbols(rng, 2, (C, (F + 1) * L + 92)),
+                          device=card)
+    hdr = torch.stack([buf[:, k * L: k * L + 90] for k in range(F + 1)], 1)
+    start = torch.as_tensor(np.tile(90 + np.arange(F) * L, C), device=card)
+    cc = torch.ones(C * F, dtype=torch.bool, device=card)
+    n0_ov = torch.full((C * F,), -1.0, device=card)
+    descr = torch.as_tensor(cplx.from_np(pl_descrambling_sequence(
+        cfg.gold_code)[: info.payload_len]).astype(np.float32), device=card)
+    lane = make_lane_fn(cfg, descr)
+    sym = buf[:, None].expand(C, F, buf.shape[1], 2)
+
+    def call():
+        return lane(hdr[:, :F], hdr[:, 1:], sym, start, cc, n0_ov, x_every=F)
+
+    eager = {k: v.clone() for k, v in call().items()}
+    scratch = dict(plsync_cuda._SCRATCH)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    assert plsync_cuda._SCRATCH == scratch
+    replays = []
+    for _ in range(2):
+        for v in out.values():
+            v.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        replays.append({k: v.clone() for k, v in out.items()})
+    for k in eager:
+        assert torch.equal(replays[0][k], replays[1][k]), k
+        assert torch.equal(replays[0][k], eager[k]), k
+    phases = plsync_cuda.plheader_plain(
+        [hdr[:, :F], hdr[:, 1:]], [torch.tensor([cfg.pls], device=card)] * 2
+    )["phase"]
+    rec = _payload_case("graph", "cuda", dict(
+        sym=sym, start=start, clamp_len=info.payload_len, descr=descr,
+        ph=phases, cc=cc, n0_ov=n0_ov, info=info,
+        constellation=cfg.constellation, rate=cfg.rate, x_every=F,
+        llr_out=eager["llrs"], x_out=eager["x0"]))
+    assert rec["llr_ties"] <= 1e-3 * rec["llrs"]

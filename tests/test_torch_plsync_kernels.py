@@ -181,10 +181,14 @@ def _run_payload(cfg, info, descr, ph, cc, n0_ov, sym, start, clamp_len,
     llr = torch.zeros((N, B), dtype=torch.int8)
     fine, n0 = torch.zeros(B), torch.zeros(B)
     x = torch.zeros((B // x_every, x_len or info.n_slots * 90, 2))
-    flt = plsync_cuda.payload(sym, start, clamp_len, descr, ph, cc, n0_ov,
-                              info, cfg.constellation, cfg.rate, llr, fine,
-                              n0, sel=sel, x_out=x, x_every=x_every,
-                              want_float=True)
+    plsync_cuda.FLOAT_LLRS = []
+    try:
+        plsync_cuda.payload(sym, start, clamp_len, descr, ph, cc, n0_ov,
+                            info, cfg.constellation, cfg.rate, llr, fine, n0,
+                            sel=sel, x_out=x, x_every=x_every)
+        (flt, _), = plsync_cuda.FLOAT_LLRS
+    finally:
+        plsync_cuda.FLOAT_LLRS = None
     return llr, fine, n0, x, flt
 
 
@@ -277,9 +281,14 @@ def test_vcm_masked_lanes_match_present_program():
         n0_ov = n0_ref[:, si].repeat_interleave(FP)
         sel = valid & (pls_l == pls_set[si])
         assert 0 < int(sel.sum()) < B
-        flt = sr._demap_lanes(si, sym, start, ph, corrected, n0_ov, sel,
-                              llr8, xf, fine, n0)
-        assert flt.shape == (B, sr.n_ldpc)
+        plsync_cuda.FLOAT_LLRS = []
+        try:
+            assert sr._demap_lanes(si, sym, start, ph, corrected, n0_ov, sel,
+                                   llr8, xf, fine, n0) is None
+            (flt, m), = plsync_cuda.FLOAT_LLRS
+        finally:
+            plsync_cuda.FLOAT_LLRS = None
+        assert flt.shape == (B, sr._fecs[si].nldpc) and torch.equal(m, sel)
         acc = _present_lanes(sr, si, sym, start, ph, corrected, n0_ov, sel,
                              acc)
     assert torch.equal(llr8, quantize_llrs(acc[0]))
@@ -293,3 +302,210 @@ def test_vcm_masked_lanes_match_present_program():
     assert sr._fecs[1].nldpc < sr.n_ldpc
     assert not llr8[short, sr._fecs[1].nldpc:].any()
     assert llr8[short, : sr._fecs[1].nldpc].any()
+
+
+# ---------------- the payload kernels' launch plan (csrc/plsync.cu) --------
+
+def _cu_source():
+    from pathlib import Path
+
+    return (Path(plsync_cuda.__file__).parent.parent / "csrc"
+            / "plsync.cu").read_text()
+
+
+def test_launch_plan_mirrors_the_source():
+    """The launch geometry constants of csrc/plsync.cu, read from the
+    source, are the plan's."""
+    import re
+
+    src = _cu_source()
+    cu = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert cu["kTileLanes"] == plsync_cuda.TILE_LANES
+    bits, small, large = map(int, re.search(
+        r"demap_tile_syms\(int n_mod\) \{\s*return n_mod <= (\d) \? (\d+) "
+        r": (\d+);\s*\}", src).groups())
+    for n_mod in range(2, 6):
+        assert plsync_cuda.tile_syms(n_mod) == (small if n_mod <= bits
+                                                else large)
+    assert cu["kMaxChunks"] == plsync_cuda.MAX_CHUNKS
+    assert 2 + cu["kMaxPilots"] == plsync_cuda.LANE_FLOATS
+    assert cu["kPayThreads"] % 32 == 0 and cu["kHdrThreads"] == 64
+
+
+@pytest.mark.parametrize("B,R,n_mod,strides,grids,along", [
+    # the CCM step: 128 lanes of QPSK normal, lane-major (N, B)
+    (128, 32400, 2, (128, 1), ((128, 10), (4, 127)), "lane"),
+    # the VCM step's (B, n_ldpc) rows: 256 lanes, 8PSK normal
+    (256, 21600, 3, (1, 64800), ((256, 10), (8, 85)), "position"),
+    # a single-channel stream (B = 2), short QPSK
+    (2, 8100, 2, (2, 1), ((2, 10), (1, 32)), "lane"),
+    # partial lane tiles; a view with a lane stride of 3
+    (37, 3240, 5, (111, 3), ((37, 10), (2, 26)), "position"),
+    (200, 5400, 3, (200, 1), ((200, 10), (7, 22)), "lane"),
+    # one lane: no lane to run along
+    (1, 32400, 2, (1, 1), ((1, 10), (1, 127)), "position"),
+])
+def test_launch_plan(B, R, n_mod, strides, grids, along):
+    plan = plsync_cuda.launch_plan(B, R, n_mod, 0, *strides)
+    assert (plan["stats_grid"], plan["demap_grid"]) == grids
+    assert plan["chunks"] * plan["chunk"] >= R > (plan["chunks"] - 1) \
+        * plan["chunk"]
+    assert plan["write_along"] == along
+    assert plan["stage_rows"] == n_mod * plsync_cuda.tile_syms(n_mod)
+    # the scratch: the (B, 16, 2) double sums, then 24 floats a lane
+    assert plan["scratch_float64"] == B * 32 + B * 12
+    assert plsync_cuda.launch_plan(B, R, n_mod, -1, *strides)["runs"] == 1
+    assert plan["runs"] == n_mod
+
+
+def test_launch_plan_chunks_fit_the_scratch():
+    """Every frame's data symbols (R = 90 slots x 36-360) split into at
+    most MAX_CHUNKS chunks, the last one not empty."""
+    for R in range(90 * 36, 90 * 360 + 1, 90):
+        plan = plsync_cuda.launch_plan(4, R, 2, -1, 4, 1)
+        assert 1 <= plan["chunks"] <= plsync_cuda.MAX_CHUNKS
+        assert (plan["chunks"] - 1) * plan["chunk"] < R
+
+
+def _chunked_n0(xfec, constellation, rate, chunk):
+    """numpy mirror of the statistics and demap kernels' N0: each chunk's
+    data-aided SNR terms summed in double, the chunks' sums added in chunk
+    order in double, rounded once to float32, then snr = sp / max(np,
+    1e-12) and n0 = 1 / max(snr, 1e-9) in float32."""
+    x = xfec.astype(np.float32)
+    if constellation == "QPSK":
+        s2 = np.float32(np.sqrt(0.5))
+        ref = np.sign(x) * s2
+        sp_t = (ref * ref).sum(-1, dtype=np.float32)
+        np_t = ((x - ref) ** 2).sum(-1, dtype=np.float32)
+    else:
+        from dvbs2rx_tpu_torch.ops.demap import _points
+
+        pts = _points(constellation, rate).astype(np.float32)
+        d2 = ((x[..., None, :] - pts) ** 2).sum(-1, dtype=np.float32)
+        dmin = d2.min(-1)
+        tied = d2 == dmin[..., None]
+        inv = np.float32(1) / tied.sum(-1).astype(np.float32)
+        e = (pts * pts).sum(-1, dtype=np.float32)
+        sp_t = (tied * (inv[..., None] * e)).sum(-1, dtype=np.float32)
+        np_t = dmin
+    R = x.shape[-2]
+    sp = np.zeros(x.shape[0])
+    npw = np.zeros(x.shape[0])
+    for k in range(-(-R // chunk)):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        sp = sp + sp_t[:, sl].astype(np.float64).sum(-1)
+        npw = npw + np_t[:, sl].astype(np.float64).sum(-1)
+    snr = sp.astype(np.float32) / np.maximum(npw.astype(np.float32),
+                                             np.float32(1e-12))
+    return np.float32(1) / np.maximum(snr, np.float32(1e-9))
+
+
+@pytest.mark.parametrize("modcod,pilots", [("qpsk1/2", False),
+                                           ("8psk3/5", True),
+                                           ("32apsk3/4", False)])
+def test_chunked_double_reduction_gives_the_plain_n0(modcod, pilots):
+    """The kernels' N0 (chunk partial sums in double, reduced in a fixed
+    order, rounded once) against ``payload_plain``'s float32 N0 on the
+    same corrected symbols: within rtol 1e-5 (float32 sums in torch's
+    order); the plan's chunks and chunks of 1 (every symbol its own)."""
+    B = C * F
+    cfg, info, descr, ph, cc, n0_ov = _payload_args(modcod, pilots, 21, B)
+    Lp = info.payload_len
+    _, _, pay = _lane_inputs(modcod, pilots, seed=24)
+    sym = torch.from_numpy(pay).permute(2, 3, 0, 1)        # (C, F, Lp, 2)
+    x = torch.zeros((B, info.n_slots * 90, 2))
+    llr = torch.zeros((info.n_slots * 90 * info.n_mod, B), dtype=torch.int8)
+    fine, n0 = torch.zeros(B), torch.zeros(B)
+    plsync_cuda.payload(sym, None, Lp, descr, ph, cc, n0_ov, info,
+                        cfg.constellation, cfg.rate, llr, fine, n0,
+                        x_out=x)
+    R = info.n_slots * 90
+    for chunk in (plsync_cuda.launch_plan(B, R, 2, -1, B, 1)["chunk"], 1):
+        want = _chunked_n0(x.numpy(), cfg.constellation, cfg.rate, chunk)
+        np.testing.assert_allclose(n0.numpy(), want, rtol=1e-5)
+
+
+def _tile_positions(tile, R, n_mod, order):
+    """The codeword positions of a demap tile's stage rows, in stage
+    order, as the demap kernel's write-out computes them: row j ns + q
+    (interleaved: bit j of the tile's symbol q at column order_j of R rows)
+    or q n_mod + j (uninterleaved: symbol order), ns the tile's symbols."""
+    ts = plsync_cuda.tile_syms(n_mod)
+    i0 = tile * ts
+    ns = min(ts, R - i0)
+    ro = np.arange(n_mod * ns)
+    if order < 0:
+        return i0 * n_mod + ro
+    run, off = ro // ns, ro % ns
+    col = (order >> (4 * run)) & 15
+    return col * R + i0 + off
+
+
+def _write_out(B, R, n_mod, order, l_pos, l_lane, sel, rows):
+    """numpy mirror of the demap kernel's stage and write-out over the
+    plan's tiles: bit j of lane b's symbol i carries b 10^6 + i n_mod + j
+    + 1 into its stage row, and each tile's stage rows go to
+    ``_tile_positions`` (whichever stride the kernel runs along, the
+    addresses are these). Returns the flat LLR storage and the count of
+    writes per element."""
+    plan = plsync_cuda.launch_plan(B, R, n_mod, order, l_pos, l_lane)
+    n_el = 1 + (rows - 1) * l_pos + (B - 1) * l_lane
+    out = np.zeros(n_el, np.int64)
+    hits = np.zeros(n_el, np.int64)
+    TL, TS = plsync_cuda.TILE_LANES, plsync_cuda.tile_syms(n_mod)
+    for lt in range(plan["demap_grid"][0]):
+        lanes = np.arange(lt * TL, min(B, (lt + 1) * TL))
+        lanes = lanes[sel[lanes]]
+        for st in range(plan["demap_grid"][1]):
+            i0 = st * TS
+            ns = min(TS, R - i0)
+            q, j = np.meshgrid(np.arange(ns), np.arange(n_mod), indexing="ij")
+            ro = (j * ns + q) if order >= 0 else (q * n_mod + j)
+            stage = np.zeros((n_mod * ns, len(lanes)), np.int64)
+            stage[ro.ravel()] = ((lanes[None, :] * 10 ** 6)
+                                 + ((i0 + q) * n_mod + j).ravel()[:, None]
+                                 + 1)
+            pos = _tile_positions(st, R, n_mod, order)
+            idx = pos[:, None] * l_pos + lanes[None, :] * l_lane
+            np.add.at(hits, idx.ravel(), 1)
+            out[idx.ravel()] = stage.ravel()
+    return out, hits
+
+
+@pytest.mark.parametrize("const,rate", [("QPSK", "1/2"), ("8PSK", "3/5"),
+                                        ("8PSK", "25/36"), ("8PSK", "2/3"),
+                                        ("16APSK", "2/3"),
+                                        ("32APSK", "3/4")])
+@pytest.mark.parametrize("B,layout", [(2, "lane-major"), (37, "rows"),
+                                      (200, "lane-major"), (37, "strided")])
+def test_tile_positions_deinterleave(const, rate, B, layout):
+    """Every selected lane's every LLR lands once, at the position the
+    plain deinterleave gives it, whatever the partial tiles and mask;
+    unselected lanes' columns and row padding stay untouched."""
+    from dvbs2rx_tpu_torch.ops.demap import deinterleave_llrs
+    from dvbs2rx_tpu_torch.spec.constellations import BITS_PER_SYMBOL
+
+    n_mod = BITS_PER_SYMBOL[const]
+    R = 270 + 37 * n_mod          # two and a bit tiles, ragged
+    N = R * n_mod
+    order = plsync_cuda._order_word(const, rate)
+    rng = np.random.default_rng(B + n_mod)
+    sel = rng.random(B) < 0.7
+    sel[32: min(B, 64)] = False   # a tile with no selected lane
+    rows = N + 5
+    l_pos, l_lane = {"lane-major": (B, 1), "rows": (1, rows),
+                     "strided": (3 * B, 3)}[layout]
+    out, hits = _write_out(B, R, n_mod, order, l_pos, l_lane, sel, rows)
+    sym_order = torch.arange(N, dtype=torch.float64)[None] + 1
+    want_pos = deinterleave_llrs(sym_order, const, rate)[0].numpy()
+    for b in range(B):
+        idx = np.arange(rows) * l_pos + b * l_lane
+        if sel[b]:
+            np.testing.assert_array_equal(out[idx[:N]] - b * 10 ** 6,
+                                          want_pos)
+            assert (hits[idx[:N]] == 1).all()
+            assert not hits[idx[N:]].any()
+        else:
+            assert not hits[idx].any()

@@ -29,7 +29,7 @@ from dvbs2rx_tpu.tx import TxConfig, awgn_channel
 from dvbs2rx_tpu.tx.vcm import VCMTransmitter
 
 from dvbs2rx_tpu_torch.convert import vcm_state_from_numpy, vcm_state_to_numpy
-from dvbs2rx_tpu_torch.ops import plsync
+from dvbs2rx_tpu_torch.ops import plsync, plsync_cuda
 from dvbs2rx_tpu_torch.rx.receiver import RxConfig
 from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamEngine, VCMStreamReceiver
 from dvbs2rx_tpu_torch.spec.pls import make_pls
@@ -98,6 +98,23 @@ def _assert_equal_but_ties(q, want, v, rel=0.0):
     assert tie.ravel()[at].all(), "an int8 lane differs away from a tie"
     assert at.size <= 4, at.size
     return at.size
+
+
+def _step_a_with_floats(sr, state, iq):
+    """``sr._step_a`` on the CPU, and its lanes' float LLRs (B, n_ldpc)
+    before quantization (zero-padded; zero rows for lanes no PLS
+    selected), read through ``plsync_cuda.FLOAT_LLRS``."""
+    plsync_cuda.FLOAT_LLRS = []
+    try:
+        out = sr._step_a(state, iq)
+        parts = plsync_cuda.FLOAT_LLRS
+    finally:
+        plsync_cuda.FLOAT_LLRS = None
+    assert len(parts) == sr.S
+    flt = torch.zeros(out[1].shape, dtype=torch.float32)
+    for llr, sel in parts:
+        flt[sel, : llr.shape[1]] = llr[sel]
+    return (*out, flt)
 
 
 def _n0_divergence(ours, theirs, lanes_per_channel):
@@ -181,11 +198,14 @@ def test_steps_match_jax_from_same_state(main):
                 jout[k].append(o[k])
             jiters.append(jstats_b["ldpc_iters"])
         jstats = dict(jstats, n0_refined=jstats_b["n0_refined"])
-        state, *lanes, stats = sr._step_a(state, torch.from_numpy(blk))
-        # lanes: llr and xf (floats here, quantized by the JAX step A; one
-        # frame per row here, lane-major in JAX), meta, sels
-        for q, v, theirs, r in zip(sr.quantize(*lanes[:2]), lanes[:2],
-                                   jlanes[:2], (rel, 0.0)):
+        state, *lanes, stats, flt = _step_a_with_floats(
+            sr, state, torch.from_numpy(blk))
+        # lanes: llr (int8) and xf (floats here, quantized by the JAX step
+        # A; one frame per row here, lane-major in JAX), meta, sels; the
+        # plain payload's float LLRs decide the ties
+        for q, v, theirs, r in zip(
+                (lanes[0], sr.quantize_snapshots(lanes[1])), (flt, lanes[1]),
+                jlanes[:2], (rel, 0.0)):
             ties += _assert_equal_but_ties(q.numpy(), np.asarray(theirs).T,
                                            v.numpy(), r)
         for ours, theirs in zip(lanes[2:], jlanes[2:]):

@@ -29,7 +29,18 @@ them on ``chip_smoke.py``'s inputs with its timer (``_time_ms``: median of
   BBFRAMEs (``_crc_inputs`` with seed 2032, B = 128, n = 4,026, window
   187), and ``crc8_device_ms`` its ``torch.profiler`` device time (mean
   over 20 launches: an event timing of one small launch is the host's
-  enqueue rate); null for a checkout without the CRC-8 kernel.
+  enqueue rate); null for a checkout without the CRC-8 kernel;
+* ``plsync_payload_ms`` and ``plsync_header_ms``: ``plsync_cuda.payload``
+  and ``plheader`` at the CCM step's shape (64 channels x 2 frames of
+  QPSK 1/2 normal pilotless, B = 128 lane-major LLRs, the payloads read in
+  place from one symbol buffer, frame 0's symbols out; both header sets
+  with metric and autocorrelation) and ``plsync_*_vcm_*_ms`` at the VCM
+  step's (256 lanes of a 64-channel ring, piloted PLS 17 and 49, 64 lanes
+  each selected, (B, n_ldpc) rows; 1,344 x 2 headers with the
+  autocorrelation), on seeded noisy QPSK / 8PSK symbols: the profiler's
+  device time of the call's kernels (a payload call's one or two
+  launches summed), and ``*_events_ms`` the CUDA-event time; null for a
+  checkout without the PL sync kernels.
 
 It prints one JSON line per run, with a digest of the LDPC case's four
 outputs, and a last line with each checkout's times and whether every
@@ -98,7 +109,129 @@ def child(root: str):
         "root": root, "ldpc_ms": ldpc_ms,
         "ldpc_iter_us": (per_trials[4] - per_trials[0]) / 4 * 1e3,
         "mf_ms": mf_ms, **gardner, **_bch_times(h), **_crc8_times(h),
-        "digest": h.hexdigest()[:16]}))
+        **_plsync_times(), "digest": h.hexdigest()[:16]}))
+
+
+def _plsync_lanes(rng, info, C, F, rows, starts, dev):
+    """A (C, rows, 2) buffer of seeded noisy symbols of ``info``'s
+    constellation, viewed per lane as (C, F, rows, 2), and per-lane starts
+    ((C F,) int64)."""
+    import numpy as np
+    import torch
+
+    m = 1 << info.n_mod
+    ang = 2 * np.pi * rng.integers(0, m, (C, rows)) / m + np.pi / m
+    x = np.stack([np.cos(ang), np.sin(ang)], -1) + rng.normal(
+        0, 0.1, (C, rows, 2))
+    buf = torch.as_tensor(x.astype(np.float32), device=dev)
+    return (buf, buf[:, None].expand(C, F, rows, 2),
+            torch.as_tensor(np.asarray(starts, np.int64), device=dev))
+
+
+def plsync_cases(plsync_cuda):
+    """The PL sync calls timed here, on the card: [(key, call, kernel
+    names)], the payload's names those of ``plsync_cuda``'s checkout (one
+    kernel in a checkout with ``LAUNCHES["plsync_payload"]``, else the
+    statistics and demap kernels)."""
+    import numpy as np
+    import torch
+
+    from dvbs2rx_tpu_torch.ops import cplx
+    from dvbs2rx_tpu_torch.spec.fec_params import DVBS2_MODCODS
+    from dvbs2rx_tpu_torch.spec.pls import make_pls, parse_pls
+    from dvbs2rx_tpu_torch.spec.scramblers import pl_descrambling_sequence
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2041)
+    pay_k = [f"{k}_kernel" for k in plsync_cuda.LAUNCHES
+             if k != "plsync_header"]
+    head_k = ["plsync_header_kernel"]
+
+    def descr(info):
+        # the default scrambling code's sequence, uploaded once a call site
+        return torch.as_tensor(cplx.from_np(pl_descrambling_sequence(0)[
+            : info.payload_len]).astype(np.float32), device=dev)
+
+    cases = []
+    # CCM: B = 128 lanes, frame k of channel c at k L + 90
+    info = parse_pls(make_pls(4, False, False))       # QPSK 1/2 pilotless
+    C, F, L, R = 64, 2, info.plframe_len, info.n_slots * 90
+    rows = (F + 1) * L + 92
+    buf, sym, start = _plsync_lanes(rng, info, C, F, rows,
+                                    np.tile(90 + np.arange(F) * L, C), dev)
+    hdr = torch.stack([buf[:, k * L: k * L + 90] for k in range(F + 1)], 1)
+    pls = torch.tensor([info.plsc], device=dev)
+    hdrs, plss = [hdr[:, :F], hdr[:, 1:]], [pls, pls]
+    cases.append(("plsync_header", lambda: plsync_cuda.plheader(
+        hdrs, plss, 90, True), head_k))
+    ph = plsync_cuda.plheader(hdrs, plss)["phase"]
+    B = C * F
+    const, rate = DVBS2_MODCODS[info.modcod]
+    args = (sym, start, info.payload_len, descr(info), ph,
+            torch.ones(B, dtype=torch.bool, device=dev),
+            torch.full((B,), -1.0, device=dev), info, const, rate,
+            torch.empty((R * info.n_mod, B), dtype=torch.int8, device=dev),
+            torch.empty(B, device=dev), torch.empty(B, device=dev))
+    x0 = torch.empty((C, R, 2), device=dev)
+    cases.append(("plsync_payload", lambda f=F: plsync_cuda.payload(
+        *args, x_out=x0, x_every=f), pay_k))
+    # VCM: 256 lanes of a 64-channel ring, PLS 17 and 49 (piloted QPSK
+    # 1/2 and 8PSK 3/5 normal), each on 64 lanes
+    infos = [parse_pls(p) for p in (make_pls(4, False, True),
+                                    make_pls(12, False, True))]
+    Lp_max = max(i.payload_len for i in infos)
+    C, F, n_sym = 64, 4, 133256
+    B = C * F
+    vhdr = torch.as_tensor(rng.normal(size=(21, 64, 2, 90, 2)).astype(
+        np.float32), device=dev)
+    hp = torch.as_tensor(rng.choice([i.plsc for i in infos], 21 * 64),
+                         device=dev)
+    vhdrs = [vhdr[:, :, 0], vhdr[:, :, 1]]
+    cases.append(("plsync_header_vcm", lambda: plsync_cuda.plheader(
+        vhdrs, [hp, hp], 90), head_k))
+    r_sub = min(4096, min(64800 // i.n_mod for i in infos))
+    llr8 = torch.zeros((B, 64800), dtype=torch.int8, device=dev)
+    xf = torch.zeros((B, 2 * r_sub), device=dev)
+    vph = torch.as_tensor(rng.uniform(-3, 3, (B, 2, 2)).astype(np.float32),
+                          device=dev)
+    for k, inf in enumerate(infos):
+        _, vsym, vstart = _plsync_lanes(rng, inf, C, F, n_sym, rng.integers(
+            0, n_sym - Lp_max, B), dev)
+        const, rate = DVBS2_MODCODS[inf.modcod]
+        vargs = (vsym, vstart, Lp_max, descr(inf), vph,
+                 torch.ones(B, dtype=torch.bool, device=dev),
+                 torch.full((B,), -1.0, device=dev), inf, const, rate,
+                 llr8.t(), torch.zeros(B, device=dev),
+                 torch.zeros(B, device=dev))
+        vkw = dict(sel=torch.arange(B, device=dev) % 4 == k,
+                   x_out=xf.view(-1, r_sub, 2), x_scale=32.0, n0_use=True)
+        cases.append((f"plsync_payload_vcm_pls{inf.plsc}",
+                      lambda a=vargs, kw=vkw: plsync_cuda.payload(*a, **kw),
+                      pay_k))
+    return cases
+
+
+def _plsync_times():
+    """The PL sync kernels of the checkout at the CCM and VCM shapes: the
+    profiler's device time of each call's kernels, summed, and its
+    CUDA-event time."""
+    import chip_smoke
+
+    try:
+        from dvbs2rx_tpu_torch.ops import plsync_cuda
+    except ImportError:     # a checkout from before the PL sync kernels
+        return dict.fromkeys(PLSYNC_KEYS)
+    out = {}
+    for key, fn, kernels in plsync_cases(plsync_cuda):
+        out[f"{key}_ms"] = sum(
+            chip_smoke._profiled_device_times(fn, kernels).values())
+        out[f"{key}_events_ms"] = chip_smoke._time_ms(fn)
+    return out
+
+
+PLSYNC_KEYS = tuple(f"plsync_{k}{e}_ms" for k in (
+    "header", "payload", "header_vcm", "payload_vcm_pls17",
+    "payload_vcm_pls49") for e in ("", "_events"))
 
 
 def _crc8_times(h):
@@ -177,7 +310,8 @@ def main():
     summary = {root: {k: [x[k] for x in runs if x["root"] == root]
                       for k in ("ldpc_ms", "ldpc_iter_us", "mf_ms",
                                 "gardner_ms", "gardner_sps4_ms", "bch_ms",
-                                "bch_clean_ms", "crc8_ms", "crc8_device_ms")}
+                                "bch_clean_ms", "crc8_ms", "crc8_device_ms",
+                                *PLSYNC_KEYS)}
                for root in args.roots}
     print(json.dumps({"runs": summary,
                       "same_outputs": len({x["digest"] for x in runs}) == 1}))

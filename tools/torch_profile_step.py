@@ -96,7 +96,7 @@ KERNEL_MODULES = {
             ("ldpc", "FEC decode (LDPC + BCH)"),
             ("bch_", "FEC decode (LDPC + BCH)"),
             ("plsync_header", "PLHEADER kernel"),
-            ("plsync_payload", "lane program (PL sync + demap)")),
+            ("plsync_", "lane program (PL sync + demap)")),
 }
 
 
