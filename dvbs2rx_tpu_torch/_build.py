@@ -49,7 +49,7 @@ _SIGNATURES = {
     "mf_segmented_grid_blocks": [_I] * 2,
     "ldpc_layered_launch": [_P] * 6 + [_I] * 8 + [_P],
     "ldpc_layered_smem_bytes": [_I] * 4,
-    "vcm_walk_launch": [_P] * 18 + [_I] * 5 + [_P],
+    "vcm_walk_launch": [_P] * 27 + [_I] * 7 + [_P],
     "plsync_header_launch": [_P] * 9 + [_I] * 3 + [_L] * 4 + [_I] * 2 + [_P],
     "plsync_stats_launch": _PAYLOAD_ARGS,
     "plsync_demap_launch": _PAYLOAD_ARGS,

@@ -13,13 +13,16 @@ decides where the next frame starts, so one step composes:
   window at the predicted start of the next frame, a 3-point
   early/on-time/late metric, the PLSC decode (differential until the coarse
   CFO is corrected, then ``cfg.plsc_mode``), and the PLS -> frame length
-  table; on the card one launch of ``csrc/vcm_walk.cu`` a step
-  (``ops.vcm_walk_cuda``), on the CPU the plain loop ``_walk_plain``;
-- the PLHEADER kernel (``csrc/plsync.cu``) over the walked slots (header
-  phases and the coarse-CFO autocorrelation), then per expected PLS the
-  payload kernel (descramble, fine CFO, phase correction, SNR, demap,
-  int8 LLRs) over the lanes that decoded to it, reading the ring in place;
-- lock upkeep, full-PLHEADER coarse CFO and the closed-loop rotator;
+  table; with its books over the walked slots: the data slots compacted
+  to (C, F_pay) lanes, lock upkeep and the full-PLHEADER coarse CFO; on
+  the card one launch of ``csrc/vcm_walk.cu`` a step
+  (``ops.vcm_walk_cuda``), on the CPU the plain composite
+  ``_walk_books_plain`` (the loop ``_walk_plain``, then the books);
+- the PLHEADER kernel (``csrc/plsync.cu``) over the lanes (header
+  phases), then per expected PLS the payload kernels (descramble, fine
+  CFO, phase correction, SNR, demap, int8 LLRs) over the lanes that
+  decoded to it, reading the ring in place;
+- the closed-loop rotator;
 - per expected PLS, a pooled FEC queue (frames from every channel and
   step) that decodes full ``B_fec``-frame batches with the LDPC kernel
   ``csrc/ldpc_layered.cu`` and BCH, and carries a refined N0 per (channel,
@@ -283,24 +286,26 @@ class VCMStreamReceiver(StreamFrontEnd):
         pls_d, _ = plsync.plsc_decode_diff(hdr, enabled_mask=mask)
         return torch.where(corrected, pls_c, pls_d).to(torch.int64)
 
-    def _walk(self, state):
-        """Decoded-PLS chain walk over K_max slots. Returns the slots
-        (dict of (K, C, ...) tensors: pos, pls, valid, own_hdr, metric,
-        next_pls, next_hdr), the carry's fp_right and PLS, and the number
-        of frames walked per channel. On the card one launch of
+    def _walk_books(self, state):
+        """Decoded-PLS chain walk over K_max slots and its books: the data
+        slots compacted to (C, F_pay) lanes, the lock and coarse-CFO
+        recurrences over the walked slots, the per-channel counts. Returns
+        ``_walk_books_plain``'s dict. On the card one launch of
         ``csrc/vcm_walk.cu`` (``ops.vcm_walk_cuda``); CPU tensors take the
-        plain loop, ``_walk_plain``."""
+        plain composite, ``_walk_books_plain``."""
         if not state["symbuf"].is_cuda:
-            return self._walk_plain(state)
-        return vcm_walk(state["symbuf"], state["fp_right"], state["symfill"],
-                        state["pls"], state["coarse_corrected"],
-                        self._search_mask, self.K_max, self.L_max,
-                        self.cfg.plsc_mode)
+            return self._walk_books_plain(state)
+        return vcm_walk(state, self._search_mask, self._enabled_tab,
+                        self.K_max, self.F_pay, self.L_max,
+                        self.cfg.plsc_mode, self.cfg.coarse_period)
 
     def _walk_plain(self, state):
-        """``_walk`` as a loop of PyTorch operations, slot by slot: the
-        kernel's plain version. Once a chain is dead at slot k, the carry
-        is frozen, so slots k + 1 .. K_max - 1 repeat slot k."""
+        """Decoded-PLS chain walk over K_max slots as a loop of PyTorch
+        operations, slot by slot. Returns the slots (dict of (K, C, ...)
+        tensors: pos, pls, valid, own_hdr, metric, next_pls, next_hdr), the
+        carry's N_SYM - pos and PLS, and the number of frames walked per
+        channel. Once a chain is dead at slot k, the carry is frozen, so
+        slots k + 1 .. K_max - 1 repeat slot k."""
         symbuf = state["symbuf"]
         corrected = state["coarse_corrected"]
         fp0 = self.N_SYM - state["fp_right"].to(torch.int64)
@@ -342,6 +347,91 @@ class VCMStreamReceiver(StreamFrontEnd):
         n_walked = slots["valid"].sum(0, dtype=torch.int32)
         return slots, self.N_SYM - pos, pls, n_walked
 
+    def _walk_books_plain(self, state):
+        """``_walk_books`` in PyTorch: ``_walk_plain``, then the books over
+        its (K, C) slots, in the JAX step's order (the kernel's plain
+        version). Returns {"lanes": {pos, pls, next_pls (C, F_pay) int64,
+        valid (C, F_pay) bool, own_hdr, next_hdr (C, F_pay, 90, 2)
+        float32}: the first F_pay data slots of each channel in stream
+        order, zeros after; "fp_right", "pls" (C,) int64: the carry's
+        N_SYM - pos and PLS; "n_walked", "counts" (data slots, those past
+        F_pay included), "dummies", "rejected", "unlock_cnt",
+        "coarse_frames", "settle" (C,) int32; "coarse_acc" (C, 89, 2),
+        "coarse_foffset", "metric_sum" (the walked slots' metrics) (C,)
+        float32; "coarse_corrected", "new_coarse" (C,) bool}. The coarse
+        recurrence evolves its own corrected flag; the walk and the demap
+        keep the one the step started with."""
+        C, K, FP = self.n_channels, self.K_max, self.F_pay
+        dev = state["symbuf"].device
+        slots, fp_right, new_pls, n_walked = self._walk_plain(state)
+        valid, pls_s = slots["valid"], slots["pls"]              # (K, C)
+        is_dummy = self._dummy_tab[pls_s]
+        is_enabled = self._enabled_tab[pls_s]
+        is_data = valid & ~is_dummy & is_enabled
+
+        # ---- compact data slots to (C, F_pay) stream-ordered lanes: a
+        # scatter by rank; slots past F_pay and non-data slots go to a
+        # spill column that is dropped ----
+        rank = torch.cumsum(is_data.to(torch.int64), dim=0) - 1    # (K, C)
+        dst = torch.where(is_data & (rank < FP), rank, FP).t()     # (C, K)
+
+        def compact(x):
+            x = x.transpose(0, 1)                                 # (C, K,...)
+            idx = dst.reshape(dst.shape + (1,) * (x.ndim - 2)).expand_as(x)
+            out = torch.zeros((C, FP + 1) + x.shape[2:], dtype=x.dtype,
+                              device=dev)
+            return out.scatter(1, idx, x)[:, :FP]
+
+        lanes = {k: compact(slots[k]) for k in ("pos", "pls", "next_pls",
+                                                "own_hdr", "next_hdr")}
+        lanes["valid"] = compact(is_data)
+
+        # ---- lock maintenance over walked slots ----
+        unlock = state["unlock_cnt"]
+        for k in range(K):
+            reset = slots["metric"][k] > plsync.THRESHOLD_LOCKED
+            unlock = torch.where(valid[k], torch.where(reset, 0, unlock + 1),
+                                 unlock)
+
+        # ---- coarse CFO: full-PLHEADER accumulation over walked slots ----
+        r_full = plsync.coarse_autocorr_plain(
+            slots["own_hdr"].reshape(K * C, 90, 2), pls_s.reshape(K * C),
+            full=True).reshape(K, C, 89, 2)
+        acc = state["coarse_acc"]
+        cf = state["coarse_frames"]
+        settle = state["settle"]
+        corrected = state["coarse_corrected"]
+        coarse_est = state["coarse_foffset"]
+        new_coarse = torch.zeros((C,), dtype=torch.bool, device=dev)
+        for k in range(K):
+            act = valid[k]
+            in_settle = settle > 0
+            settle = torch.where(act & in_settle, settle - 1, settle)
+            skip = ~act | (in_settle & ~corrected)
+            acc = torch.where(skip[:, None, None], acc, acc + r_full[k])
+            cf = torch.where(skip, cf, cf + 1)
+            fire = cf >= self.cfg.coarse_period
+            est_new = plsync.coarse_foffset_from_autocorr(acc)
+            coarse_est = torch.where(fire, est_new, coarse_est)
+            corrected = torch.where(
+                fire, est_new.abs() < plsync.FINE_FOFFSET_CORR_RANGE,
+                corrected)
+            acc = torch.where(fire[:, None, None], 0.0, acc)
+            cf = torch.where(fire, 0, cf)
+            new_coarse = new_coarse | fire
+
+        i32 = torch.int32
+        return {
+            "lanes": lanes, "fp_right": fp_right, "pls": new_pls,
+            "n_walked": n_walked, "unlock_cnt": unlock, "coarse_frames": cf,
+            "settle": settle, "counts": is_data.sum(0, dtype=i32),
+            "dummies": (valid & is_dummy).sum(0, dtype=i32),
+            "rejected": (valid & ~is_dummy & ~is_enabled).sum(0, dtype=i32),
+            "coarse_acc": acc, "coarse_foffset": coarse_est,
+            "metric_sum": torch.where(valid, slots["metric"], 0.0).sum(0),
+            "coarse_corrected": corrected, "new_coarse": new_coarse,
+        }
+
     def _demap_lanes(self, si, sym, start, ph, corrected, n0_ov, sel, llr8,
                      xf, fine, n0):
         """Lane program of expected PLS ``si`` over the lanes set in
@@ -363,63 +453,39 @@ class VCMStreamReceiver(StreamFrontEnd):
             n0_use=True)
 
     def _step_a(self, state, iq):
-        """Front end, walk, lane compaction, per-PLS demap and selection,
-        lock upkeep, coarse CFO and the rotator. Returns (state', llr (B,
-        n_ldpc) int8, as the payload kernels write it, xf (B, 2 R_SUB)
-        float32 scaled symbol snapshots, meta (B, 2) int32 (channel, seq),
-        sels (S, B) bool, stats); lane b = c * F_pay + f (the JAX step
-        returns llr and xf quantized)."""
+        """Front end, walk and its books (lane compaction, lock upkeep,
+        coarse CFO), per-PLS demap and selection, and the rotator. Returns
+        (state', llr (B, n_ldpc) int8, as the payload kernels write it, xf
+        (B, 2 R_SUB) float32 scaled symbol snapshots, meta (B, 2) int32
+        (channel, seq), sels (S, B) bool, stats); lane b = c * F_pay + f
+        (the JAX step returns llr and xf quantized)."""
         cfg = self.cfg
-        C, K, FP, B = self.n_channels, self.K_max, self.F_pay, self.B_lanes
+        C, FP, B = self.n_channels, self.F_pay, self.B_lanes
         dev = iq.device
         state, overflow, underflow = self._append_symbols(state, iq)
         symbuf = state["symbuf"]
         # the append moved every buffered symbol left by n_out
         state = dict(state, fp_right=state["fp_right"] + self.n_out)
-        slots, fp_right, new_pls, n_walked = self._walk(state)
+        books = self._walk_books(state)
+        lanes = books["lanes"]
+        fp_right, n_walked, counts = (books["fp_right"], books["n_walked"],
+                                      books["counts"])
 
-        valid, pls_s = slots["valid"], slots["pls"]              # (K, C)
-        is_dummy = self._dummy_tab[pls_s]
-        is_enabled = self._enabled_tab[pls_s]
-        is_data = valid & ~is_dummy & is_enabled
-        rejected = valid & ~is_dummy & ~is_enabled
-
-        # every walked slot's header and next header, with their decoded
-        # PLS: data-aided and tail phases, and the own header's full
-        # PLHEADER autocorrelation (coarse CFO); one launch on the card
+        # every lane's header and next header, with their decoded PLS: the
+        # data-aided and tail phases; one launch on the card (empty lanes
+        # carry zero headers and PLS 0: phase 0)
         hk = plsync_cuda.plheader(
-            [slots["own_hdr"], slots["next_hdr"]],
-            [pls_s.reshape(-1), slots["next_pls"].reshape(-1)],
-            n_auto=90)
-        ph_s = hk["phase"].reshape(K, C, 2, 2)
-        r_full = hk["autocorr"].reshape(K, C, 89, 2)
-
-        # ---- compact data slots to (C, F_pay) stream-ordered lanes: a
-        # scatter by rank; slots past F_pay and non-data slots go to a
-        # spill column that is dropped ----
-        rank = torch.cumsum(is_data.to(torch.int64), dim=0) - 1    # (K, C)
-        dst = torch.where(is_data & (rank < FP), rank, FP).t()     # (C, K)
-
-        def compact(x):
-            x = x.transpose(0, 1)                                 # (C, K,...)
-            idx = dst.reshape(dst.shape + (1,) * (x.ndim - 2)).expand_as(x)
-            out = torch.zeros((C, FP + 1) + x.shape[2:], dtype=x.dtype,
-                              device=dev)
-            return out.scatter(1, idx, x)[:, :FP]
-
-        d_pos = compact(slots["pos"])
-        d_pls = compact(pls_s)
-        d_ph = compact(ph_s)                                      # C,FP,2,2
-        d_valid = compact(is_data)
-        counts = is_data.sum(0, dtype=torch.int32)                 # (C,)
+            [lanes["own_hdr"], lanes["next_hdr"]],
+            [lanes["pls"].reshape(B), lanes["next_pls"].reshape(B)])
+        d_valid = lanes["valid"]                                   # (C, FP)
         d_seq = state["seq"][:, None] + torch.arange(FP, device=dev,
                                                      dtype=torch.int32)
 
         # ---- lanes: payloads read in place from the ring (max window) ----
         sym = symbuf[:, None].expand((C, FP) + symbuf.shape[1:])
-        start_l = (d_pos + 90).reshape(B)
-        ph_l = d_ph.reshape(B, 2, 2)
-        pls_l = d_pls.reshape(B)
+        start_l = (lanes["pos"] + 90).reshape(B)
+        ph_l = hk["phase"].reshape(B, 2, 2)
+        pls_l = lanes["pls"].reshape(B)
         valid_l = d_valid.reshape(B)
         corrected_l = state["coarse_corrected"].repeat_interleave(FP)
 
@@ -443,37 +509,14 @@ class VCMStreamReceiver(StreamFrontEnd):
         ], dim=1)
         sels = torch.stack(sels)                                   # (S, B)
 
-        # ---- lock maintenance over walked slots ----
-        unlock = state["unlock_cnt"]
-        for k in range(K):
-            reset = slots["metric"][k] > plsync.THRESHOLD_LOCKED
-            unlock = torch.where(valid[k], torch.where(reset, 0, unlock + 1),
-                                 unlock)
-        locked = unlock < cfg.unlock_thresh
-
-        # ---- coarse CFO: full-PLHEADER accumulation over walked slots ----
-        acc = state["coarse_acc"]
-        cf = state["coarse_frames"]
-        settle = state["settle"]
-        corrected = state["coarse_corrected"]
-        coarse_est = state["coarse_foffset"]
-        new_coarse = torch.zeros((C,), dtype=torch.bool, device=dev)
-        for k in range(K):
-            act = valid[k]
-            in_settle = settle > 0
-            settle = torch.where(act & in_settle, settle - 1, settle)
-            skip = ~act | (in_settle & ~corrected)
-            acc = torch.where(skip[:, None, None], acc, acc + r_full[k])
-            cf = torch.where(skip, cf, cf + 1)
-            fire = cf >= cfg.coarse_period
-            est_new = plsync.coarse_foffset_from_autocorr(acc)
-            coarse_est = torch.where(fire, est_new, coarse_est)
-            corrected = torch.where(
-                fire, est_new.abs() < plsync.FINE_FOFFSET_CORR_RANGE,
-                corrected)
-            acc = torch.where(fire[:, None, None], 0.0, acc)
-            cf = torch.where(fire, 0, cf)
-            new_coarse = new_coarse | fire
+        # ---- lock and coarse CFO: the books' recurrences ----
+        locked = books["unlock_cnt"] < cfg.unlock_thresh
+        acc = books["coarse_acc"]
+        cf = books["coarse_frames"]
+        settle = books["settle"]
+        corrected = books["coarse_corrected"]
+        coarse_est = books["coarse_foffset"]
+        new_coarse = books["new_coarse"]
 
         # ---- closed-loop rotator update (block granular) ----
         fine_cf = fine.reshape(C, FP)
@@ -500,7 +543,7 @@ class VCMStreamReceiver(StreamFrontEnd):
         new_state = dict(
             state,
             fp_right=fp_right.clamp(max=self.N_SYM),
-            pls=new_pls,
+            pls=books["pls"],
             seq=state["seq"] + counts,
             coarse_acc=acc,
             coarse_frames=cf,
@@ -509,10 +552,10 @@ class VCMStreamReceiver(StreamFrontEnd):
             cum_foffset=cum,
             settle=settle,
             rot_inc=rot_inc,
-            unlock_cnt=unlock,
+            unlock_cnt=books["unlock_cnt"],
         )
         new_state = {k: v.to(state[k].dtype) for k, v in new_state.items()}
-        walked_metric = torch.where(valid, slots["metric"], 0.0).sum(0)
+        walked_metric = books["metric_sum"]
         stats = {
             "locked": locked,
             # frame start fell off the symbol ring: flag for re-acquisition
@@ -521,8 +564,8 @@ class VCMStreamReceiver(StreamFrontEnd):
                                   walked_metric / n_walked.clamp(min=1), 0.0),
             "n_walked": n_walked,
             "frames": counts.sum(dtype=torch.int32),
-            "dummies": (valid & is_dummy).sum(dtype=torch.int32),
-            "rejected": rejected.sum(dtype=torch.int32),
+            "dummies": books["dummies"].sum(dtype=torch.int32),
+            "rejected": books["rejected"].sum(dtype=torch.int32),
             "coarse_foffset": coarse_est,
             "coarse_corrected": corrected,
             "cum_foffset": cum,

@@ -35,9 +35,9 @@ from dvbs2rx_tpu_torch.ops.ldpc import LDPCDecoder
 from dvbs2rx_tpu_torch.rx.receiver import RxConfig
 from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
 
-from chip_smoke import (WALK_MODES, WALK_TOL, _gardner_waveform,
+from chip_smoke import (WALK_MODES, WALK_TOL, _books_diff, _gardner_waveform,
                         _make_vcm_stimulus, _payload_case, _plheader_case,
-                        _plsync_small, _walk_diff, _walk_states)
+                        _plsync_small, _walk_states)
 
 pytestmark = pytest.mark.cuda
 
@@ -331,8 +331,9 @@ def test_vcm_step_on_card_matches_cpu(card):
 def _walk_cases():
     """chip_smoke's walk cases at C = 64 on phase 6's stimulus (normal PLS
     17 + 49 at 13 dB), after 4 steps: the stream, coarse_corrected
-    alternating, symfill rising across the channels, first frames at the
-    ring's edges, and a ring of dummy frames with every slot alive."""
+    alternating, the estimate firing inside the walk, settling channels,
+    symfill rising across the channels, first frames at the ring's edges,
+    and a ring of dummy frames with every slot alive."""
     from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
 
     sr = VCMStreamReceiver(_walk_cfg("coherent-soft"), 64, 2, device="cuda")
@@ -351,35 +352,39 @@ def _walk_cfg(mode):
 
 @pytest.mark.parametrize("mode", WALK_MODES)
 def test_vcm_walk_kernel_matches_plain(card, mode):
-    """The chain walk kernel against its plain loop on the card at C = 64,
-    in each PLSC mode, on every case of ``_walk_cases``: pos, PLS, next
-    PLS, valid, the headers, fp_right, the carried PLS and the frames
-    walked equal; the metric within WALK_TOL (1e-5) of its largest
-    magnitude; one launch per ``_walk``, none by ``_walk_plain``."""
+    """The walk kernel (the chain walk and its books) against its plain
+    composite on the card at C = 64, in each PLSC mode, on every case of
+    ``_walk_cases``: the lanes, carry and counts equal, the lock and
+    coarse flags equal but at named near-ties, the accumulator and metric
+    sum within WALK_TOL (1e-5) of their largest magnitude
+    (``chip_smoke._books_diff``); one launch per ``_walk_books``, none by
+    ``_walk_books_plain``."""
     from dvbs2rx_tpu_torch.ops import vcm_walk_cuda
     from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
 
     sr = VCMStreamReceiver(_walk_cfg(mode), 64, 2, device=card)
-    walked = {}
+    walked, fired = {}, {}
     for case, state in _walk_cases().items():
         n0 = vcm_walk_cuda.LAUNCHES
-        got = sr._walk(state)
+        got = sr._walk_books(state)
         assert vcm_walk_cuda.LAUNCHES == n0 + 1
-        want = sr._walk_plain(state)
+        want = sr._walk_books_plain(state)
         assert vcm_walk_cuda.LAUNCHES == n0 + 1
-        err, scale = _walk_diff(got, want)
-        assert err <= WALK_TOL * scale
-        walked[case] = got[3].cpu().numpy()
+        err, scale, _ = _books_diff(sr, state, got, want)
+        assert err["coarse_acc"] <= WALK_TOL * scale["coarse_acc"]
+        walked[case] = got["n_walked"].cpu().numpy()
+        fired[case] = got["new_coarse"].cpu().numpy()
     assert (walked["dummy"] == sr.K_max).all()
     assert (walked["stream"] >= 2).all()
     assert (walked["symfill_partial"] == 0).any()
     assert (walked["symfill_partial"] > 0).any()
+    assert fired["fired"].all() and fired["dummy"].all()
 
 
 def test_vcm_steps_launch_the_walk_kernel_and_never_the_plain_loop(
         card, monkeypatch):
-    """On the card every VCM step walks through one kernel launch and never
-    through the plain loop."""
+    """On the card every VCM step walks and keeps its books through one
+    kernel launch and never through the plain composite."""
     from dvbs2rx_tpu_torch.ops import vcm_walk_cuda
     from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
 
@@ -387,6 +392,7 @@ def test_vcm_steps_launch_the_walk_kernel_and_never_the_plain_loop(
         raise AssertionError("the plain walk ran on the card")
 
     monkeypatch.setattr(VCMStreamReceiver, "_walk_plain", plain)
+    monkeypatch.setattr(VCMStreamReceiver, "_walk_books_plain", plain)
     cfg, iq = _vcm_case([0, 1], 300)
     sr = VCMStreamReceiver(cfg, 2, 2, fec_lanes=8, device=card)
     state = sr.prime(iq[:, : sr._n_fe])
@@ -401,23 +407,26 @@ def test_vcm_steps_launch_the_walk_kernel_and_never_the_plain_loop(
 
 
 def test_vcm_walk_wrapper_raises_on_the_card(card):
-    """The kernel's wrapper refuses a non-contiguous ring and mixed
-    devices on the card, and launches nothing then."""
+    """The kernel's wrapper refuses a non-contiguous ring, a leaf or a
+    mask on another device, and launches nothing then."""
     from dvbs2rx_tpu_torch.ops import vcm_walk_cuda
     from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
 
     sr = VCMStreamReceiver(_walk_cfg("coherent-soft"), 64, 2, device=card)
     state = _walk_cases()["stream"]
-    args = dict(symbuf=state["symbuf"], fp_right=state["fp_right"],
-                symfill=state["symfill"], pls=state["pls"],
-                corrected=state["coarse_corrected"],
-                search_mask=sr._search_mask, K=sr.K_max, L_max=sr.L_max,
-                mode="coherent-soft")
+    args = dict(state=state, search_mask=sr._search_mask,
+                enabled_mask=sr._enabled_tab, K=sr.K_max, F_pay=sr.F_pay,
+                L_max=sr.L_max, mode="coherent-soft",
+                coarse_period=sr.cfg.coarse_period)
     n0 = vcm_walk_cuda.LAUNCHES
     ring = state["symbuf"]
-    for bad in (dict(symbuf=ring.transpose(0, 1).contiguous().transpose(0, 1)),
-                dict(pls=state["pls"].cpu()),
-                dict(search_mask=sr._search_mask.cpu())):
+    for bad in (
+            dict(state=dict(state, symbuf=ring.transpose(0, 1).contiguous()
+                            .transpose(0, 1))),
+            dict(state=dict(state, pls=state["pls"].cpu())),
+            dict(state=dict(state, coarse_acc=state["coarse_acc"].cpu())),
+            dict(search_mask=sr._search_mask.cpu()),
+            dict(enabled_mask=sr._enabled_tab.cpu())):
         with pytest.raises(ValueError):
             vcm_walk_cuda.vcm_walk(**dict(args, **bad))
     assert vcm_walk_cuda.LAUNCHES == n0

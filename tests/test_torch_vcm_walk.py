@@ -14,9 +14,11 @@ end). Integer outputs and headers (gathered symbols) exactly; the
 frame metric within ``tests/test_torch_vcm.py``'s tolerance (rtol 1e-4,
 atol 1e-3: float32 sums in another order than XLA's on the CPU).
 
-The kernel (``csrc/vcm_walk.cu``) runs only on the card
-(``tests/test_torch_cuda.py``); here: the walk's dispatch, the wrapper's
-checks, the kernel's tables, and its dead-slot rule on the plain loop.
+The kernel (``csrc/vcm_walk.cu``, the walk and its books in one launch)
+runs only on the card (``tests/test_torch_cuda.py``); here: the dispatch
+of the walk and its books, the wrapper's checks, the kernel's tables, and
+the dead-slot rule on the plain loop. ``tests/test_torch_vcm_books.py``
+holds the books to the JAX step.
 """
 
 import functools
@@ -167,26 +169,60 @@ def test_dead_slots_repeat_the_first_dead_slot(case):
         assert int(pls[c]) == int(slots["pls"][k, c])
 
 
+def _full(sr, state, seed=5):
+    """``state`` with the books' leaves (lock count, coarse accumulator,
+    frames, settle and estimate), seeded."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        state,
+        unlock_cnt=torch.tensor(rng.integers(0, 3, C), dtype=torch.int32),
+        coarse_frames=torch.tensor(rng.integers(0, 2, C), dtype=torch.int32),
+        settle=torch.tensor(rng.integers(0, 2, C), dtype=torch.int32),
+        coarse_acc=torch.from_numpy(rng.normal(size=(C, 89, 2)).astype(
+            np.float32)),
+        coarse_foffset=torch.zeros(C))
+
+
 def test_walk_takes_the_plain_loop_on_cpu():
+    """On CPU tensors the walk and its books are the plain composite,
+    ``_walk_plain`` and the books (no launch); its lanes are the plain
+    walk's data slots."""
     sr, _ = _receivers("coherent-hard")
-    state = _states()["mixed"]
+    state = _full(sr, _states()["mixed"])
     before = vcm_walk_cuda.LAUNCHES
-    a = sr._walk(state)
-    b = sr._walk_plain(state)
+    a = sr._walk_books(state)
+    b = sr._walk_books_plain(state)
     assert vcm_walk_cuda.LAUNCHES == before
-    for k in a[0]:
-        torch.testing.assert_close(a[0][k], b[0][k], rtol=0, atol=0)
-    for x, y in zip(a[1:], b[1:]):
-        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    for k in a["lanes"]:
+        torch.testing.assert_close(a["lanes"][k], b["lanes"][k], rtol=0,
+                                   atol=0)
+    for k in set(a) - {"lanes"}:
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+    slots, fp_right, pls, n_walked = sr._walk_plain(state)
+    torch.testing.assert_close(a["fp_right"], fp_right, rtol=0, atol=0)
+    torch.testing.assert_close(a["pls"], pls, rtol=0, atol=0)
+    torch.testing.assert_close(a["n_walked"], n_walked, rtol=0, atol=0)
+    for c in range(C):
+        data = [k for k in range(sr.K_max) if bool(slots["valid"][k, c])
+                and int(slots["pls"][k, c]) in sr.pls_set]
+        assert int(a["counts"][c]) == len(data)
+        for f, k in enumerate(data[: sr.F_pay]):
+            assert int(a["lanes"]["pos"][c, f]) == int(slots["pos"][k, c])
+            torch.testing.assert_close(a["lanes"]["next_hdr"][c, f],
+                                       slots["next_hdr"][k, c], rtol=0,
+                                       atol=0)
 
 
 def _args(sr, state, **kw):
-    args = dict(symbuf=state["symbuf"], fp_right=state["fp_right"],
-                symfill=state["symfill"], pls=state["pls"],
-                corrected=state["coarse_corrected"],
-                search_mask=sr._search_mask, K=sr.K_max, L_max=sr.L_max,
-                mode=sr.cfg.plsc_mode)
-    args.update(kw)
+    args = dict(state=_full(sr, state), search_mask=sr._search_mask,
+                enabled_mask=sr._enabled_tab, K=sr.K_max, F_pay=sr.F_pay,
+                L_max=sr.L_max, mode=sr.cfg.plsc_mode,
+                coarse_period=sr.cfg.coarse_period)
+    for k, v in kw.items():
+        if k in args:
+            args[k] = v
+        else:
+            args["state"] = dict(args["state"], **{k: v})
     return args
 
 
@@ -198,6 +234,11 @@ def _args(sr, state, **kw):
     ("mode", "PLSC mode"),
     ("short_mask", "search_mask"),
     ("cpu", "CUDA tensors"),
+    ("int64_unlock", "unlock_cnt"),
+    ("acc_shape", "coarse_acc"),
+    ("float64_foffset", "coarse_foffset"),
+    ("short_enabled", "enabled_mask"),
+    ("too_many_slots", "K 65"),
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
     sr, _ = _receivers("coherent-soft")
@@ -207,10 +248,16 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
                                 .transpose(0, 1)),
           "int64_pls": dict(pls=state["pls"].to(torch.int64)),
           "float64_ring": dict(symbuf=ring.double()),
-          "short_ring": dict(symbuf=ring[:, :93].contiguous()),
+          "short_ring": dict(symbuf=ring[:, :95].contiguous()),
           "mode": dict(mode="blind"),
           "short_mask": dict(search_mask=sr._search_mask[:64]),
-          "cpu": {}}[bad]
+          "cpu": {},
+          "int64_unlock": dict(unlock_cnt=torch.zeros(C, dtype=torch.int64)),
+          "acc_shape": dict(coarse_acc=torch.zeros(C, 90, 2)),
+          "float64_foffset": dict(coarse_foffset=torch.zeros(
+              C, dtype=torch.float64)),
+          "short_enabled": dict(enabled_mask=sr._enabled_tab[:64]),
+          "too_many_slots": dict(K=vcm_walk_cuda.MAX_K + 1)}[bad]
     before = vcm_walk_cuda.LAUNCHES
     with pytest.raises(ValueError, match=match):
         vcm_walk_cuda.vcm_walk(**_args(sr, state, **kw))
@@ -219,20 +266,35 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
 
 def test_kernel_tables_hold_the_plain_constants():
     """The kernel's tables decode back to the plain version's constants:
-    the frame lengths, the +-1 images from their bits, the metric taps,
-    SOF symbols and derotation factors."""
+    the frame lengths, the transform's PLS table (every PLS once), the
+    scrambler and dummy bits, the metric taps, SOF symbols, derotation
+    factors, coarse weights and the float32 scalars."""
     sr, _ = _receivers("coherent-soft")
     it = vcm_walk_cuda.int_table().view(np.uint32)
-    assert it.shape == (384,)
+    assert it.shape == (262,)
     np.testing.assert_array_equal(it[:128], sr._L_tab.numpy())
-    words = it[128:].reshape(128, 2).astype(np.uint64)
-    bits = (words[:, :, None] >> np.arange(32, dtype=np.uint64)) & 1
-    np.testing.assert_array_equal(1.0 - 2.0 * bits.reshape(128, 64),
-                                  plsync._rm_images())
+    np.testing.assert_array_equal(it[128:256],
+                                  vcm_walk_cuda.wht_table().reshape(-1))
+    assert sorted(it[128:256]) == list(range(128))
+
+    def bits(words):
+        w = words.astype(np.uint64)
+        return ((w[:, None] >> np.arange(32, dtype=np.uint64)) & 1).reshape(-1)
+
+    np.testing.assert_array_equal(bits(it[256:258]),
+                                  plsync.PLSC_SCRAMBLER_BITS)
+    np.testing.assert_array_equal(bits(it[258:262]), sr._dummy_tab.numpy())
     ft = vcm_walk_cuda.float_table()
+    assert ft.shape == (360, 2)
     ks, kp = plsync._frame_metric_taps()
     np.testing.assert_array_equal(ft[:89], ks)
     np.testing.assert_array_equal(ft[89:178], kp)
     np.testing.assert_array_equal(ft[178:204],
                                   plsync.plheader_conj_lut()[0, :26])
-    np.testing.assert_array_equal(ft[204:], plsync._pi2_derot_factors())
+    np.testing.assert_array_equal(ft[204:268], plsync._pi2_derot_factors())
+    np.testing.assert_array_equal(ft[268:357, 0], plsync.coarse_weights(90))
+    assert (ft[268:357, 1] == 0).all()
+    two_pi = np.float32(2 * np.pi)
+    np.testing.assert_array_equal(ft[357:], np.array(
+        [[np.pi, two_pi], [plsync.FINE_FOFFSET_CORR_RANGE, 25.0],
+         [np.float32(1) / two_pi, 0]], np.float32))

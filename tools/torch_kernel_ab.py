@@ -37,10 +37,20 @@ them on ``chip_smoke.py``'s inputs with its timer (``_time_ms``: median of
   with metric and autocorrelation) and ``plsync_*_vcm_*_ms`` at the VCM
   step's (256 lanes of a 64-channel ring, piloted PLS 17 and 49, 64 lanes
   each selected, (B, n_ldpc) rows; 1,344 x 2 headers with the
-  autocorrelation), on seeded noisy QPSK / 8PSK symbols: the profiler's
-  device time of the call's kernels (a payload call's one or two
-  launches summed), and ``*_events_ms`` the CUDA-event time; null for a
-  checkout without the PL sync kernels.
+  autocorrelation, the VCM step's layout until the walk kernel kept the
+  books, and ``plsync_header_vcm_lanes``: its layout since, the 256
+  lanes' own and next headers without it), on seeded noisy QPSK / 8PSK
+  symbols: the profiler's device time of the call's kernels (a payload
+  call's one or two launches summed), and ``*_events_ms`` the CUDA-event
+  time; null for a checkout without the PL sync kernels;
+* ``walk_ms`` and ``walk_dummy_ms``: the VCM walk kernel on phase 6's
+  state (``chip_smoke._walk_states``: 64 channels of piloted QPSK 1/2 and
+  8PSK 3/5 normal frames after 16 steps, the default PLSC mode) and on its
+  ring of dummy frames (every one of the 21 slots alive): the profiler's
+  device time, and ``*_events_ms`` the CUDA-event time; a checkout whose
+  kernel keeps the books (``VCMStreamReceiver._walk_books``) is timed
+  through that, an older one through ``_walk``; null for a checkout
+  without the walk kernel.
 
 It prints one JSON line per run, with a digest of the LDPC case's four
 outputs, and a last line with each checkout's times and whether every
@@ -109,7 +119,7 @@ def child(root: str):
         "root": root, "ldpc_ms": ldpc_ms,
         "ldpc_iter_us": (per_trials[4] - per_trials[0]) / 4 * 1e3,
         "mf_ms": mf_ms, **gardner, **_bch_times(h), **_crc8_times(h),
-        **_plsync_times(), "digest": h.hexdigest()[:16]}))
+        **_plsync_times(), **_walk_times(), "digest": h.hexdigest()[:16]}))
 
 
 def _plsync_lanes(rng, info, C, F, rows, starts, dev):
@@ -208,6 +218,13 @@ def plsync_cases(plsync_cuda):
         cases.append((f"plsync_payload_vcm_pls{inf.plsc}",
                       lambda a=vargs, kw=vkw: plsync_cuda.payload(*a, **kw),
                       pay_k))
+    # the VCM step's PLHEADER launch since the walk kernel keeps the
+    # books: the 256 lanes' own and next headers, no autocorrelation
+    lhdr = torch.as_tensor(rng.normal(size=(2, C, F, 90, 2)).astype(
+        np.float32), device=dev)
+    lp = torch.as_tensor(rng.choice([i.plsc for i in infos], B), device=dev)
+    cases.append(("plsync_header_vcm_lanes", lambda: plsync_cuda.plheader(
+        [lhdr[0], lhdr[1]], [lp, lp]), head_k))
     return cases
 
 
@@ -231,7 +248,40 @@ def _plsync_times():
 
 PLSYNC_KEYS = tuple(f"plsync_{k}{e}_ms" for k in (
     "header", "payload", "header_vcm", "payload_vcm_pls17",
-    "payload_vcm_pls49") for e in ("", "_events"))
+    "payload_vcm_pls49", "header_vcm_lanes") for e in ("", "_events"))
+
+
+WALK_KEYS = tuple(f"walk{k}{e}_ms" for k in ("", "_dummy")
+                  for e in ("", "_events"))
+
+
+def _walk_times():
+    """The VCM walk kernel of the checkout on phase 6's stream state and
+    on the dummy ring: the profiler's device time and the CUDA-event
+    time."""
+    import chip_smoke
+    from dvbs2rx_tpu_torch.rx.receiver import RxConfig
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+    from dvbs2rx_tpu_torch.spec.pls import make_pls
+
+    try:
+        from dvbs2rx_tpu_torch.ops import vcm_walk_cuda  # noqa: F401
+    except ImportError:     # a checkout from before the walk kernel
+        return dict.fromkeys(WALK_KEYS)
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="normal", acm_vcm=True,
+                   pls_expected=(make_pls(4, False, True),
+                                 make_pls(12, False, True)))
+    sr = VCMStreamReceiver(cfg, chip_smoke.C, chip_smoke.F, device="cuda")
+    iq, _, _ = chip_smoke._vcm_stimulus(sr)
+    states = chip_smoke._walk_states(sr, iq)
+    walk = getattr(sr, "_walk_books", None) or sr._walk
+    out = {}
+    for key, case in (("walk", "stream"), ("walk_dummy", "dummy")):
+        fn = (lambda st=states[case]: walk(st))
+        out[f"{key}_ms"] = chip_smoke._profiled_device_ms(fn,
+                                                          "vcm_walk_kernel")
+        out[f"{key}_events_ms"] = chip_smoke._time_ms(fn)
+    return out
 
 
 def _crc8_times(h):
@@ -311,7 +361,7 @@ def main():
                       for k in ("ldpc_ms", "ldpc_iter_us", "mf_ms",
                                 "gardner_ms", "gardner_sps4_ms", "bch_ms",
                                 "bch_clean_ms", "crc8_ms", "crc8_device_ms",
-                                *PLSYNC_KEYS)}
+                                *PLSYNC_KEYS, *WALK_KEYS)}
                for root in args.roots}
     print(json.dumps({"runs": summary,
                       "same_outputs": len({x["digest"] for x in runs}) == 1}))

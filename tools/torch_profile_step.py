@@ -30,9 +30,11 @@ functions it calls in ``torch.profiler.record_function`` ranges
 skipped), and each kernel's device time goes to the innermost range
 around the operator that launched it, or to "step bookkeeping" when no
 range holds it (the step's own loops and merges). Prints device ms and
-launches per step per module, and one JSON line. ``--root DIR`` imports
-the package and ``chip_smoke`` from another checkout (e.g. the parent
-unpacked under ``build/``), so two revisions are profiled by one tool.
+launches per step per module, the launching operator and kernel behind
+each module's launches (all but the bookkeeping's), and one JSON line.
+``--root DIR`` imports the package and ``chip_smoke`` from another
+checkout (e.g. the parent unpacked under ``build/``), so two revisions
+are profiled by one tool.
 ``--scan T`` (``ccm``) also replays ``make_scan_step(T)`` from the primed
 state (one capture, then one replay under ``torch.profiler``) and prints
 the replay's device busy time and kernel events per step.
@@ -77,6 +79,7 @@ MODULES_VCM = (
     ("sr", "_append_symbols", "front-end glue"),
     ("sr.sync", "step_batched", "O&M timing"),
     ("sr", "_walk", "VCM walk"),
+    ("sr", "_walk_books", "VCM walk"),
     ("dvbs2rx_tpu_torch.ops.plsync", "plheader_phase", "header phases"),
     ("dvbs2rx_tpu_torch.ops.plsync", "coarse_autocorr", "coarse autocorr"),
     ("dvbs2rx_tpu_torch.ops.plsync_cuda", "plheader", "PLHEADER kernel"),
@@ -261,11 +264,13 @@ def _print_by_module(path, prof, steps, busy_ms):
     from torch.autograd import DeviceType
 
     names = {n for _, _, n in (MODULES_CCM + MODULES_VCM)}
-    ms, launches = {}, {}
+    ms, launches, kinds = {}, {}, {}
 
-    def add(owner, us, n):
+    def add(owner, us, n, kind):
         ms[owner] = ms.get(owner, 0.0) + us / 1e3 / steps
         launches[owner] = launches.get(owner, 0) + n / steps
+        per = kinds.setdefault(owner, {})
+        per[kind] = per.get(kind, 0) + n
 
     tied = {}
     for ev in prof.events():
@@ -277,8 +282,8 @@ def _print_by_module(path, prof, steps, busy_ms):
                 owner = up.name
                 break
             up = up.cpu_parent
-        add(owner, sum(k.duration for k in ev.kernels), len(ev.kernels))
         for k in ev.kernels:
+            add(owner, k.duration, 1, f"{ev.name} -> {k.name[:60]}")
             tied[k.name] = tied.get(k.name, 0) + 1
     for key, us, n in _kernel_rows(prof):
         left = n - tied.get(key, 0)
@@ -286,17 +291,21 @@ def _print_by_module(path, prof, steps, busy_ms):
             continue
         owner = next((m for pre, m in KERNEL_MODULES[path] if pre in key),
                      "untied kernels")
-        add(owner, us * left / n, left)
+        add(owner, us * left / n, left, f"(by name) {key[:60]}")
     total = sum(ms.values())
     print(f"{path} by module: device ms and kernel launches per step "
           f"(attributed {total:.3f} of {busy_ms:.3f} busy ms)")
     for name in sorted(ms, key=lambda n: -ms[n]):
         print(f"  {ms[name]:9.3f} ms {ms[name] / total:6.1%} "
               f"{launches[name]:7.1f} launches  {name}")
+        if name != BOOKKEEPING:
+            # the operators and kernels behind each module's launches
+            for kind, n in sorted(kinds[name].items(), key=lambda x: -x[1]):
+                print(f"      {n / steps:7.2f} per step  {kind}")
     print(json.dumps({"by_module": {
         "path": path, "busy_ms": busy_ms, "attributed_ms": total,
-        "modules": {n: {"ms": ms[n], "launches": launches[n]}
-                    for n in ms}}}))
+        "modules": {n: {"ms": ms[n], "launches": launches[n],
+                        "kernels": kinds[n]} for n in ms}}}))
 
 
 def _kernel_rows(prof):
