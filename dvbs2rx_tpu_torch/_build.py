@@ -44,7 +44,7 @@ _SIGNATURES = {
     "crc8_validity_launch": [_P] * 4 + [_I] * 4 + [_P],
     "gardner_launch": [_P] * 16 + [_I] * 11 + [_F] * 4 + [_P],
     "gardner_smem_bytes": [_I] * 2,
-    "mf_segmented_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "mf_segmented_launch": [_P] * 4 + [_I] * 9 + [_P, _I, _P],
     "mf_segmented_smem_bytes": [_I] * 2,
     "mf_segmented_grid_blocks": [_I] * 2,
     "ldpc_layered_launch": [_P] * 6 + [_I] * 8 + [_P],
@@ -53,6 +53,11 @@ _SIGNATURES = {
     "plsync_header_launch": [_P] * 9 + [_I] * 3 + [_L] * 4 + [_I] * 2 + [_P],
     "plsync_stats_launch": _PAYLOAD_ARGS,
     "plsync_demap_launch": _PAYLOAD_ARGS,
+    "frontend_launch": [_P] * 13 + [_I] * 4 + [_F] * 4 + [_P],
+    "frontend_chunk_samples": [],
+    "frontend_tile_rows": [],
+    "ffsync_track_launch": [_P] * 15 + [_I] * 13 + [_F] * 6 + [_P],
+    "ffsync_piece_samples": [],
 }
 
 _lock = threading.Lock()

@@ -42,7 +42,8 @@ import numpy as np
 from .. import __version__
 from .._build import launch_counts
 from ..io.iq import iter_iq
-from ..ops import fir_cuda, ldpc_cuda, plsync_cuda
+from ..ops import (ffsync_cuda, fir_cuda, frontend_cuda, ldpc_cuda,
+                   plsync_cuda)
 from ..ops.resample import DeviceResampler
 from ..rx.receiver import RxConfig, make_receiver
 from ..rx.stream import StreamEngine
@@ -469,17 +470,23 @@ def kernel_launches() -> dict:
 
 
 def kernel_shapes() -> dict:
-    """The shapes this process launched the MF, LDPC and PL sync kernels
-    at, each with its launches: ``[C, n, S, seg_len, L, sps, off_bound,
-    launches]``, ``[code table, B, max_trials, launches]`` and the PL sync
-    kernels' layouts (``ops.plsync_cuda.LAUNCH_SHAPES``' keys) with their
-    launches."""
+    """The shapes this process launched the MF, LDPC, PL sync and front-end
+    kernels at, each with its launches: ``[C, n, S, seg_len, L, sps,
+    off_bound, (block length with in-place starts,) launches]``, ``[code
+    table, B, max_trials, launches]``, the PL sync kernels' layouts
+    (``ops.plsync_cuda.LAUNCH_SHAPES``' keys), the front end's ``[C, n_in,
+    N or null, AGC mode, launches]`` and the O&M tracker's ``[C, N, block
+    length or null, n_out, launches]``."""
     return {"mf_segmented": [[*k, v] for k, v in
                              fir_cuda.LAUNCH_SHAPES.items()],
             "ldpc_layered": [[*k, v] for k, v in
                              ldpc_cuda.LAUNCH_SHAPES.items()],
             "plsync": [[*k, v] for k, v in
-                       plsync_cuda.LAUNCH_SHAPES.items()]}
+                       plsync_cuda.LAUNCH_SHAPES.items()],
+            "frontend": [[*k, v] for k, v in
+                         frontend_cuda.LAUNCH_SHAPES.items()],
+            "ffsync_track": [[*k, v] for k, v in
+                             ffsync_cuda.LAUNCH_SHAPES.items()]}
 
 
 def _final_stats(rx, n_samples, t0):

@@ -7,7 +7,10 @@
 //       sum_l x[c, s*seg_len*sps + clip(base[c,s], 0, off_bound) + sps*k + l]
 //             * taps[c, s, l]
 //
-// in exact float32 (FMA, no TF32), x and y planar (re, im) pairs.
+// in exact float32 (FMA, no TF32), x and y planar (re, im) pairs. With a
+// per-channel start (C,), x[c] is the `length` rows of a longer buffer
+// from clamp(start[c], 0, n - length) (jax.lax.dynamic_slice's clamp):
+// the stream receivers' right-aligned sample buffer, read in place.
 //
 // What bounds it on the card: device memory. At the stream receiver's
 // headline shape (64 channels x 15 segments x 4,332 symbols, 21 taps,
@@ -109,7 +112,8 @@ struct Args {
   const float* taps;    // (C, S, L)
   const int* base;      // (C, S)
   float2* y;            // (C, S*seg_len) pairs
-  int n, S, seg_len, L, sps, off_bound, chunk, n_chunks, items;
+  const int* start;     // (C,) block starts in x's rows, or null
+  int n, S, seg_len, L, sps, off_bound, chunk, n_chunks, items, length;
 };
 
 struct Item {
@@ -136,11 +140,16 @@ __device__ __forceinline__ int offset_of(const Args& a, int it) {
   return min(max(__ldg(a.base + m.c * a.S + m.s), 0), a.off_bound);
 }
 
+// the channel's block start in x's rows (0 without per-channel starts)
+__device__ __forceinline__ int block_start(const Args& a, int c) {
+  return a.start ? min(max(__ldg(a.start + c), 0), a.n - a.length) : 0;
+}
+
 // address of the item's first window sample
 __device__ __forceinline__ uintptr_t window_addr(const Args& a, const Item& m,
                                                  int sps) {
   const long long start = (long long)m.s * a.seg_len * sps + m.off +
-                          (long long)sps * m.k0;
+                          (long long)sps * m.k0 + block_start(a, m.c);
   return (uintptr_t)(a.x + (long long)m.c * a.n + start);
 }
 
@@ -389,12 +398,17 @@ extern "C" int mf_segmented_grid_blocks(int L, int sps) {
   return grid_for(L, sps);
 }
 
+// start: null, or (C,) int32 block starts of `length` rows each
 extern "C" int mf_segmented_launch(const void* x, const void* taps,
                                    const void* base, void* y, int C, int n,
                                    int S, int seg_len, int L, int sps,
                                    int off_bound, int chunk, int n_chunks,
+                                   const void* start, int length,
                                    void* stream) {
   const long long items = (long long)C * S * n_chunks;
+  if (start ? length < 1 || length > n : length != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (L < 1 || L > kMaxTaps || sps < 1 || C <= 0 || S <= 0 || seg_len <= 0 ||
       chunk < 1 || chunk > kChunkMax || (long long)n_chunks * chunk < seg_len ||
       (long long)(n_chunks - 1) * chunk >= seg_len || items >= (1LL << 31) ||
@@ -404,8 +418,8 @@ extern "C" int mf_segmented_launch(const void* x, const void* taps,
   const int blocks = grid_for(L, sps);
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   const Args a{(const float2*)x, (const float*)taps, (const int*)base,
-               (float2*)y, n, S, seg_len, L, sps, off_bound, chunk, n_chunks,
-               (int)items};
+               (float2*)y, (const int*)start, n, S, seg_len, L, sps,
+               off_bound, chunk, n_chunks, (int)items, length};
   const int grid = (int)(items < blocks ? items : blocks);
   cudaStream_t st = (cudaStream_t)stream;
   if (sps == 2) {

@@ -23,6 +23,19 @@ def to_np(x) -> np.ndarray:
     return x.view(np.complex64)[..., 0]
 
 
+def window_rows(x, start, length):
+    """x (C, N, 2) float32 -> (C, *start.shape[1:], length, 2): rows
+    start .. start+length-1 of each channel (``start`` (C,) or (C, k)),
+    each start clamped into [0, N - length] like ``jax.lax.dynamic_slice``.
+    One gather over (re, im) pairs viewed as int64."""
+    C, N = x.shape[0], x.shape[1]
+    s = start.to(torch.int64).clamp(0, N - length)
+    idx = s[..., None] + torch.arange(length, device=x.device)
+    pairs = x.contiguous().view(torch.int64)[..., 0]           # (C, N)
+    out = torch.gather(pairs, 1, idx.reshape(C, -1))
+    return out.view(torch.float32).reshape(idx.shape + (2,))
+
+
 def re(x):
     return x[..., 0]
 

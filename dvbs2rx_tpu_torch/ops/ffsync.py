@@ -5,9 +5,15 @@ multi-window), the alpha-beta position/rate tracker, integer slips and the
 segmented polyphase matched filter. The JAX class is written per channel
 and vmapped; here every function takes the channel axis as a leading batch
 axis. The JAX one-hot matmul that selects each segment's subfilter was a
-TPU workaround (gathers serialise there) and is plain indexing here. The
-matched filter runs through ``fir_cuda.mf_segmented``: the CUDA kernel on
-the card, its plain version on the CPU.
+TPU workaround (gathers serialise there) and is plain indexing here.
+
+On the card the timing estimate and its tracker are one launch of
+``csrc/ffsync.cu`` (``ops/ffsync_cuda.py``) and the matched filter one of
+``csrc/mf_segmented.cu`` (``fir_cuda.mf_segmented``); CPU tensors run
+their plain versions (``_track_plain`` here, ``mf_segmented_plain``).
+Both take the block in place from a longer buffer when given per-channel
+starts (``step_batched(..., start=, length=)``): the stream receivers'
+right-aligned sample buffer is read where it lies.
 """
 
 import functools
@@ -20,7 +26,8 @@ import torch
 from ..spec.rrc import polyphase_rrc_bank
 
 from ..utils.runtime import device_table, resolve_device
-from .cplx import mod
+from . import ffsync_cuda
+from .cplx import mod, window_rows
 from .fir_cuda import mf_decimate, mf_segmented
 
 # constants of the JAX module (see its comments for the derivations)
@@ -176,8 +183,14 @@ class FeedForwardSync:
             if n_out % s == 0
         )
 
-    def _track(self, state: FFSyncState, samples, n_out: int):
-        """Timing estimation + alpha-beta tracking + slips, all channels.
+    def _track(self, state: FFSyncState, samples, n_out: int, start=None,
+               length=None):
+        """Timing estimation + alpha-beta tracking + slips, all channels:
+        one kernel launch for CUDA tensors (``ffsync_cuda.track``), the
+        plain version (``_track_plain``) for CPU ones. ``samples`` (C, n,
+        2) is the block, or with ``start`` (C,) int and ``length`` a longer
+        buffer whose rows start .. start + length - 1 (the start clamped
+        into range) are each channel's block.
 
         Returns (new_state, taps_seg (C, S, L), off_seg (C, S), consumed)."""
         if n_out > self.max_block:
@@ -185,9 +198,18 @@ class FeedForwardSync:
                 f"front-end block of {n_out} symbols exceeds max_block="
                 f"{self.max_block}"
             )
+        if samples.is_cuda:
+            return ffsync_cuda.track(self, state, samples, n_out, start,
+                                     length)
+        if start is not None:
+            samples = window_rows(samples, start, length)
+        return self._track_plain(state, samples, n_out)
+
+    def _estimate(self, state: FFSyncState, samples, n_out: int):
+        """The timing estimate and its alpha-beta update: (tau0, rate) at
+        the block's start, (C,) each (the first half of
+        ``_track_plain``)."""
         sps = self.sps
-        S = self.segments(n_out)
-        seg_len = n_out // S
         n_samp = samples.shape[1]
         init = state.initialized > 0
         if n_samp >= MIN_MULTI_SAMP:
@@ -213,11 +235,24 @@ class FeedForwardSync:
                     -MAX_RATE, MAX_RATE),
                 torch.zeros_like(state.rate),
             )
+        return tau0, rate
 
+    def _track_plain(self, state: FFSyncState, samples, n_out: int):
+        """Plain version of ``_track`` on the block (C, n, 2) itself (the
+        JAX ``_track_impl``, vmapped)."""
+        tau0, rate = self._estimate(state, samples, n_out)
+        return self._segments_and_slips(state, tau0, rate, n_out)
+
+    def _segments_and_slips(self, state, tau0, rate, n_out: int):
+        """Each segment's subfilter taps and offset, the carry and the
+        slips, from the block-start position and rate."""
+        sps = self.sps
+        S = self.segments(n_out)
+        seg_len = n_out // S
         # segmented polyphase extraction: each segment takes the subfilter
         # phase at its centre and a whole-sample offset (+2 sample slack)
         k_centers = (torch.arange(S, dtype=torch.float32,
-                                  device=samples.device) + 0.5) * seg_len
+                                  device=tau0.device) + 0.5) * seg_len
         tau_seg = tau0[:, None] + rate[:, None] * k_centers          # (C, S)
         base_seg = torch.floor(tau_seg).to(torch.int32)
         mu_seg = tau_seg - base_seg.to(torch.float32)
@@ -241,22 +276,28 @@ class FeedForwardSync:
         )
         return new_state, taps_seg, off_seg, consumed.to(torch.int32)
 
-    def step_batched(self, states: FFSyncState, samples, n_out: int):
-        """Multi-channel step: states of (C,) leaves, samples (C, n, 2).
+    def step_batched(self, states: FFSyncState, samples, n_out: int,
+                     start=None, length=None):
+        """Multi-channel step: states of (C,) leaves, samples (C, n, 2):
+        the block, or with ``start`` (C,) int and ``length`` a longer
+        buffer holding each channel's block of ``length`` rows from its
+        start (clamped as ``jax.lax.dynamic_slice`` clamps), read in place.
 
-        The matched filter runs for all channels and segments in one
-        ``mf_segmented`` call (one kernel launch on the card)."""
+        On the card: one tracker launch and one matched-filter launch for
+        all channels and segments."""
         new_states, taps_seg, off_seg, consumed = self._track(
-            states, samples, n_out
+            states, samples, n_out, start, length
         )
         S = taps_seg.shape[1]
         if S == 1:
-            n_samp, L = samples.shape[1], self.subfilt_len
-            start = off_seg[:, 0].clamp(0, n_samp - n_out * self.sps - L)
-            syms = mf_decimate(samples, taps_seg[:, 0], start, self.sps, n_out)
+            n_samp = samples.shape[1] if start is None else length
+            base = off_seg[:, 0].clamp(
+                0, n_samp - n_out * self.sps - self.subfilt_len)
+            syms = mf_decimate(samples, taps_seg[:, 0], base, self.sps,
+                               n_out, start, length)
         else:
             syms = mf_segmented(samples, taps_seg, off_seg, self.sps,
-                                n_out // S, self._off)
+                                n_out // S, self._off, start, length)
         return new_states, syms, consumed
 
     def step(self, state: FFSyncState, samples, n_out: int):

@@ -1,5 +1,9 @@
 """Waveform front end: the block rotator and the Gardner symbol sync.
 
+``rotate_block`` on a CUDA tensor is one launch of the front-end kernel of
+``csrc/frontend.cu`` (``ops/frontend_cuda.py``, AGC off, no buffer); on a
+CPU tensor its plain version (``frontend_cuda.rotate_plain``).
+
 Port of ``dvbs2rx_tpu/ops/frontend.py`` (reference ``lib/rotator_cc_impl.cc``
 and ``lib/symbol_sync_cc_impl.cc``):
 
@@ -19,17 +23,13 @@ and its plain version (``symbol_sync_plain``, which CPU tensors run) are in
 All IQ is planar float32 (..., 2) (``ops/cplx.py``).
 """
 
-import math
-
 import numpy as np
 import torch
 
 from ..spec.rrc import polyphase_rrc_bank
-from ..utils.runtime import device_table, resolve_device
-from .cplx import mod
+from ..utils.runtime import resolve_device
+from .frontend_cuda import frontend, rotate_plain
 from .gardner_cuda import INTERP_METHODS, SymbolSyncState, symbol_sync
-
-_SIGN = np.asarray([-1.0, 1.0], np.float32)
 
 
 def rotate_block(iq, phase0, phase_inc):
@@ -38,17 +38,17 @@ def rotate_block(iq, phase0, phase_inc):
     iq: (..., n, 2) float32; phase0, phase_inc: (...) float32, one per
     block (the JAX function is vmapped over channels; here the channel axis
     is a leading batch axis). Returns (rotated, next_phase) with the phase
-    wrapped into [0, 2*pi).
+    wrapped into [0, 2*pi). The phase is phase0 + phase_inc*n with one
+    rounding (an FMA, as XLA contracts the JAX form on the CPU).
     """
+    if not iq.is_cuda:
+        return rotate_plain(iq, phase0, phase_inc)
+    lead = iq.shape[:-2]
     n_len = iq.shape[-2]
-    n = torch.arange(n_len, dtype=torch.float32, device=iq.device)
-    ph = phase0[..., None] + phase_inc[..., None] * n
-    c, sn = torch.cos(ph)[..., None], torch.sin(ph)[..., None]
-    sign = device_table(_SIGN, iq.device)
-    # re = x0*c - x1*s, im = x1*c + x0*s (the JAX form, same rounding)
-    out = iq * c + iq.flip(-1) * sn * sign
-    next_phase = mod(phase0 + phase_inc * float(n_len), 2 * math.pi)
-    return out, next_phase
+    # AGC off: the gain argument is not read (phase0 stands in for it)
+    fe = frontend(iq.reshape(-1, n_len, 2), phase0.reshape(-1),
+                  phase0.reshape(-1), phase_inc.reshape(-1))
+    return fe["out"].reshape(iq.shape), fe["phase"].reshape(lead)
 
 
 def gted_gain(rolloff: float) -> float:

@@ -62,7 +62,8 @@ from ..ops.bch import BCHDecoder
 from ..ops.crc8_dev import packet_validity
 from ..ops.demap import demap, estimate_snr_generic, estimate_snr_qpsk
 from ..ops.ffsync import FeedForwardSync, FFSyncState
-from ..ops.frontend import SymbolSync, rotate_block
+from ..ops.frontend import SymbolSync
+from ..ops.frontend_cuda import frontend
 from ..ops.ldpc import LDPCDecoder
 from ..ops.ldpc_cuda import CudaLDPCDecoder
 from ..utils.runtime import device_table, resolve_device
@@ -550,13 +551,9 @@ class Receiver:
         ph, inc, gain = (torch.tensor([r[i] for r in reqs],
                                       dtype=torch.float32, device=dev)
                          for i in (2, 3, 4))
-        if cfg.agc:
-            mag = torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2).mean(-1)
-            target = cfg.agc_ref / mag.clamp(min=1e-12)
-            alpha = min(1.0, cfg.agc_rate * self._fe_nsamp)
-            gain = (1.0 - alpha) * gain + alpha * target
-            x = x * gain[:, None, None]
-        rot, _ = rotate_block(x, ph, inc)
+        fe = frontend(x, gain, ph, inc, "update" if cfg.agc else "off",
+                      min(1.0, cfg.agc_rate * self._fe_nsamp), cfg.agc_ref)
+        rot, gain = fe["out"], fe["gain"]
         if cfg.sym_sync_impl == "ffw":
             new, syms, consumed = self.sym_sync.step_batched(st, rot,
                                                              self._fe_nout)

@@ -6,9 +6,13 @@ and ``StreamEngine`` (the ``Receiver``-compatible product surface with the
 native whole-step TS stitch). One step is ``state, iq -> state', kbytes,
 stats`` over every channel at once, composing:
 
-- AGC and rotator (``ops.frontend.rotate_block``);
+- AGC, rotator and the append to the right-aligned sample buffer
+  (``ops.frontend_cuda.frontend``: the kernels of ``csrc/frontend.cu`` on
+  the card);
 - feed-forward O&M timing with the segmented polyphase matched filter
-  (``ops.ffsync``; the CUDA kernel ``csrc/mf_segmented.cu`` on the card);
+  (``ops.ffsync``; on the card the tracker kernel ``csrc/ffsync.cu`` and
+  the matched filter ``csrc/mf_segmented.cu``, both reading the sample
+  buffer in place);
 - frame-window extraction and the early/late frame DLL;
 - per-lane PL sync, descrambling and demap (``parallel.batch.make_lane_fn``:
   the PLHEADER and payload kernels ``csrc/plsync.cu`` on the card, which
@@ -51,7 +55,7 @@ from ..convert import sharded_state_from_numpy, state_from_numpy
 from ..ops import cplx, plsync
 from ..ops.crc8_dev import packet_validity
 from ..ops.ffsync import FeedForwardSync, FFSyncState
-from ..ops.frontend import rotate_block
+from ..ops.frontend_cuda import frontend
 from ..parallel.batch import make_lane_fn
 from ..parallel.mesh import Mesh
 from ..spec.bb_frame import BatchTSStitcher
@@ -74,17 +78,21 @@ FP0 = 46            # nominal frame-start index inside the carried tail
 SHARD_REDUCE = {"bch_errors": "sum", "ldpc_iters": "max"}
 
 
-def _window(x, start, length):
-    """x (C, N, 2) float32 -> (C, *start.shape[1:], length, 2): rows
-    start .. start+length-1 of each channel (``start`` (C,) or (C, k)),
-    each start clamped into [0, N - length] like ``jax.lax.dynamic_slice``.
-    One gather over (re, im) pairs viewed as int64."""
-    C, N = x.shape[0], x.shape[1]
-    s = start.to(torch.int64).clamp(0, N - length)
-    idx = s[..., None] + torch.arange(length, device=x.device)
-    pairs = x.contiguous().view(torch.int64)[..., 0]           # (C, N)
-    out = torch.gather(pairs, 1, idx.reshape(C, -1))
-    return out.view(torch.float32).reshape(idx.shape + (2,))
+# the per-channel dynamic slice (``ops.cplx.window_rows``)
+_window = cplx.window_rows
+
+
+def prime_agc(iq, cfg):
+    """Priming's AGC on the device block (C, n, 2): the gain agc_ref /
+    mean|x| applied (the update with alpha 1 from a gain of 1), or none
+    with the AGC off, through the front end's kernels; their rotation at
+    phase 0 and increment 0 leaves every sample as it is, as the JAX
+    priming does not rotate. Returns (block, gain (C,))."""
+    C = iq.shape[0]
+    zero = torch.zeros((C,), dtype=torch.float32, device=iq.device)
+    fe = frontend(iq, zero + 1.0, zero, zero,
+                  "update" if cfg.agc else "off", 1.0, cfg.agc_ref)
+    return fe["out"], fe["gain"]
 
 
 class StreamFrontEnd:
@@ -99,33 +107,30 @@ class StreamFrontEnd:
 
     def _frontend(self, state, iq):
         """Returns (state' with the sample buffer, gain, rotator phase and
-        timing updated, symbols (C, n_out, 2), overflow, underflow)."""
+        timing updated, symbols (C, n_out, 2), overflow, underflow).
+
+        Right-aligned sample buffer: valid data ends at index N_BUF, the
+        append is a static shift, consuming samples shrinks sfill. On the
+        card: the AGC and rotate-and-append kernels, then the tracker and
+        the matched filter reading the block in place at N_BUF - sfill."""
         cfg = self.cfg
         n_in, n_out, n_fe = self.n_in, self.n_out, self._n_fe
-        gain = state["agc_gain"]
-        if cfg.agc:
-            mag = torch.sqrt(iq[..., 0] ** 2 + iq[..., 1] ** 2).mean(-1)
-            target = cfg.agc_ref / mag.clamp(min=1e-12)
-            alpha = min(1.0, cfg.agc_rate * n_in)
-            gain = (1.0 - alpha) * gain + alpha * target
-            iq = iq * gain[:, None, None]
-        rot, phase = rotate_block(iq, state["rot_phase"], state["rot_inc"])
-        # right-aligned sample buffer: valid data ends at index N_BUF, the
-        # append is a static shift, consuming samples shrinks sfill
-        overflow = state["sfill"] > self.N_BUF - n_in
-        sfill = (state["sfill"] + n_in).clamp(max=self.N_BUF)
-        sbuf = torch.cat([state["sbuf"][:, n_in:], rot], dim=1)
+        fe = frontend(iq, state["agc_gain"], state["rot_phase"],
+                      state["rot_inc"], "update" if cfg.agc else "off",
+                      min(1.0, cfg.agc_rate * n_in), cfg.agc_ref,
+                      sbuf=state["sbuf"], sfill=state["sfill"])
         ff = FFSyncState(tau=state["ff_tau"], rate=state["ff_rate"],
                          initialized=state["ff_init"])
-        fe_in = _window(sbuf, self.N_BUF - sfill, n_fe)
-        ff2, syms, consumed = self.sync.step_batched(ff, fe_in, n_out)
-        sfill = sfill - consumed
+        ff2, syms, consumed = self.sync.step_batched(
+            ff, fe["out"], n_out, start=fe["start"], length=n_fe)
+        sfill = fe["sfill"] - consumed
         underflow = sfill < (n_fe - n_in)
         new_state = dict(
-            state, sbuf=sbuf, sfill=sfill, agc_gain=gain, rot_phase=phase,
-            ff_tau=ff2.tau, ff_rate=ff2.rate, ff_init=ff2.initialized,
+            state, sbuf=fe["out"], sfill=sfill, agc_gain=fe["gain"],
+            rot_phase=fe["phase"], ff_tau=ff2.tau, ff_rate=ff2.rate,
+            ff_init=ff2.initialized,
         )
-        return new_state, syms, overflow, underflow
+        return new_state, syms, fe["overflow"], underflow
 
 
 class StreamReceiver(StreamFrontEnd):
@@ -412,8 +417,9 @@ class StreamReceiver(StreamFrontEnd):
         C, L = self.n_channels, self.frame_len
         n_out, n_fe, sps = self.n_out, self._n_fe, cfg.sps
         gain = state["agc_gain"]
-        x = iq_tail * gain[:, None, None] if cfg.agc else iq_tail
-        rot, phase = rotate_block(x, torch.zeros_like(gain), state["rot_inc"])
+        fe = frontend(iq_tail, gain, torch.zeros_like(gain), state["rot_inc"],
+                      "given" if cfg.agc else "off")
+        rot, phase = fe["out"], fe["phase"]
         ff2, syms, consumed = self.sync.step_batched(
             self.sync.init_state(C), rot, n_out)
         win = acq_metric(syms)[:, : L + 90]
@@ -477,11 +483,7 @@ class StreamReceiver(StreamFrontEnd):
         # at full width on the first device, also under a mesh
         iq = super().put_iq(
             cplx.from_np(iq_prefix[:, :n_fe]).astype(np.float32))
-        gain = torch.ones((C,), dtype=torch.float32, device=self.device)
-        if cfg.agc:
-            mag = torch.sqrt(iq[..., 0] ** 2 + iq[..., 1] ** 2).mean(-1)
-            gain = cfg.agc_ref / mag.clamp(min=1e-12)
-            iq = iq * gain[:, None, None]
+        iq, gain = prime_agc(iq, cfg)
         ff2, syms_d, consumed_d = self.sync.step_batched(
             self.sync.init_state(C), iq, n_out)
         metric = acq_metric(syms_d).cpu().numpy()

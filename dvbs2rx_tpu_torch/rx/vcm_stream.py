@@ -57,7 +57,7 @@ from ..convert import vcm_state_from_numpy
 from ..ops import cplx, plsync, plsync_cuda
 from ..ops.crc8_dev import packet_validity
 from ..ops.ffsync import FeedForwardSync
-from ..ops.frontend import rotate_block
+from ..ops.frontend_cuda import frontend
 from ..ops.vcm_walk_cuda import vcm_walk
 from ..spec.bb_frame import BBFrameParser
 from ..spec.fec_params import DVBS2_MODCODS as _MODCODS
@@ -75,7 +75,7 @@ from .receiver import (
     get_ldpc_decoder,
     get_stats,
 )
-from .stream import StreamFrontEnd, _window
+from .stream import StreamFrontEnd, _window, prime_agc
 
 DUMMY_PLFRAME_LEN = 3330      # the shortest frame, so the walk's slot bound
 GAP_SKIP_STEPS = 8            # steps a channel waits on a missing seq
@@ -750,11 +750,7 @@ class VCMStreamReceiver(StreamFrontEnd):
         if iq_prefix.shape[1] < n_fe:
             raise ValueError(f"prime needs >= {n_fe} samples per channel")
         iq = self.put_iq(cplx.from_np(iq_prefix[:, :n_fe]).astype(np.float32))
-        gain = torch.ones((C,), dtype=torch.float32, device=self.device)
-        if cfg.agc:
-            mag = torch.sqrt(iq[..., 0] ** 2 + iq[..., 1] ** 2).mean(-1)
-            gain = cfg.agc_ref / mag.clamp(min=1e-12)
-            iq = iq * gain[:, None, None]
+        iq, gain = prime_agc(iq, cfg)
         ff2, syms_d, consumed_d, metric_d = self._acquire(iq)
         syms = syms_d.cpu().numpy()
         consumed = consumed_d.cpu().numpy()
@@ -809,8 +805,9 @@ class VCMStreamReceiver(StreamFrontEnd):
         cfg = self.cfg
         C, n_out, n_fe = self.n_channels, self.n_out, self._n_fe
         gain = state["agc_gain"]
-        x = iq_tail * gain[:, None, None] if cfg.agc else iq_tail
-        rot, phase = rotate_block(x, torch.zeros_like(gain), state["rot_inc"])
+        fe = frontend(iq_tail, gain, torch.zeros_like(gain), state["rot_inc"],
+                      "given" if cfg.agc else "off")
+        rot, phase = fe["out"], fe["phase"]
         ff2, syms, consumed, metric = self._acquire(rot)
         win = metric[:, : self.L_max + 90]
         p = win.argmax(dim=1)

@@ -309,9 +309,11 @@ def test_debug_log_names_no_kernel_launch_on_the_cpu(caplog, capsys,
         "mf_segmented": 0, "gardner": 0, "ldpc_layered": 0,
         "bch_locator": 0, "bch_chien": 0, "crc8_validity": 0,
         "vcm_walk": 0, "plsync_header": 0, "plsync_stats": 0,
-        "plsync_demap": 0}
+        "plsync_demap": 0, "frontend_rotate": 0, "frontend_agc": 0,
+        "ffsync_track": 0}
     assert json.loads(shapes[-1].split(" ", 2)[2]) == {
-        "mf_segmented": [], "ldpc_layered": [], "plsync": []}
+        "mf_segmented": [], "ldpc_layered": [], "plsync": [],
+        "frontend": [], "ffsync_track": []}
     stats = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
     assert stats["bch_frame_errors"] == 0
     _assert_consecutive(np.fromfile(d / "log.ts", np.uint8), pkts, 60)

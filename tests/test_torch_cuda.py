@@ -1087,8 +1087,9 @@ def _assert_like_eager(got, want):
 
 def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     """One capture of T = 3 chained steps holds T launches of each ctypes
-    kernel of the step (MF, PLHEADER, payload, LDPC, and the sync-free
-    form's BCH locator, Chien and CRC-8; counted while captured; the profiler
+    kernel of the step (the front end's AGC, rotate and tracker kernels,
+    MF, PLHEADER, payload, LDPC, and the sync-free form's BCH locator,
+    Chien and CRC-8; counted while captured; the profiler
     sees them in one replay), and its replays equal T eager steps from the
     same state, call after call, with no host sync."""
     import warnings
@@ -1103,7 +1104,8 @@ def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     out = scan(primed, blocks)
     step_kernels = ("mf_segmented", "plsync_header", "plsync_stats",
                     "plsync_demap", "ldpc_layered", "bch_locator", "bch_chien",
-                    "crc8_validity")
+                    "crc8_validity", "frontend_agc", "frontend_rotate",
+                    "ffsync_track")
     assert scan.launches_per_call == {
         k: 3 if k in step_kernels else 0 for k in before}
     # the warm-up step and the capture
@@ -1817,3 +1819,171 @@ def test_ccm_lane_program_replays_identical_bytes_in_a_graph(card):
         constellation=cfg.constellation, rate=cfg.rate, x_every=F,
         llr_out=eager["llrs"], x_out=eager["x0"]))
     assert rec["llr_ties"] <= 1e-3 * rec["llrs"]
+
+
+# ---- the shared front end (csrc/frontend.cu, csrc/ffsync.cu) and the MF's
+# in-place read: kernels against their plain versions on the card
+
+
+def _fe_inputs(card, C=3, n_in=5000, N=9001, seed=30):
+    rng = np.random.default_rng(seed)
+    t = functools.partial(torch.tensor, device=card)
+    return dict(
+        iq=torch.from_numpy(rng.normal(size=(C, n_in, 2)).astype(
+            np.float32)).to(card),
+        gain=t([1.0, 0.5, 2.0][:C]), phase0=t([0.0, 1.3, 6.0][:C]),
+        inc=t([0.0, 0.731, -20.5][:C]),
+        sbuf=torch.from_numpy(rng.normal(size=(C, N, 2)).astype(
+            np.float32)).to(card),
+        sfill=t([100, 4500, N][:C], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("agc", ["off", "update", "given"])
+@pytest.mark.parametrize("buffered", [False, True])
+def test_frontend_kernels_match_plain(card, agc, buffered):
+    """The rotated samples (rotator phases past 1e5 rad) within 1e-6 of
+    their RMS of the plain rotation at the kernel's gain, the gain within
+    1e-6 relative of the plain composite's, fills, starts and flags equal;
+    one rotate launch a call and one AGC launch with AGC update."""
+    from dvbs2rx_tpu_torch.ops import frontend_cuda as fc
+
+    a = _fe_inputs(card)
+    if not buffered:
+        a["sbuf"] = a["sfill"] = None
+    before = (fc.LAUNCHES, fc.AGC_LAUNCHES)
+    got = fc.frontend(**{**a, "agc": agc, "alpha": 0.3, "agc_ref": 1.2})
+    assert (fc.LAUNCHES, fc.AGC_LAUNCHES) == (
+        before[0] + 1, before[1] + (agc == "update"))
+    want = fc.frontend_plain(**{**a, "agc": agc, "alpha": 0.3,
+                                "agc_ref": 1.2})
+    iso = fc.frontend_plain(**{**a, "gain": got["gain"], "agc": "off"
+                               if agc == "off" else "given"})
+    rms = float(iso["out"].square().mean().sqrt())
+    assert float((got["out"] - iso["out"]).abs().max()) <= 1e-6 * rms
+    torch.testing.assert_close(got["gain"], want["gain"], rtol=1e-6,
+                               atol=0)
+    torch.testing.assert_close(got["phase"], want["phase"], rtol=0,
+                               atol=1e-6)
+    for k in ("sfill", "start", "overflow"):
+        assert (k in got) == buffered
+        if buffered:
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_frontend_kernel_constants_match_the_wrapper(card):
+    from dvbs2rx_tpu_torch import _build
+    from dvbs2rx_tpu_torch.ops import ffsync_cuda, frontend_cuda
+
+    lib = _build.lib()
+    assert lib.frontend_chunk_samples() == frontend_cuda.CHUNK
+    assert lib.frontend_tile_rows() == frontend_cuda.TILE_ROWS
+    assert lib.ffsync_piece_samples() == ffsync_cuda.PIECE
+
+
+@pytest.mark.parametrize("n_out,in_place", [(9000, True), (9000, False),
+                                            (4096, True), (4099, False)])
+def test_ffsync_track_kernel_matches_plain(card, n_out, in_place):
+    """Multi-window (n_out 9000) and single-window blocks, in place from a
+    longer buffer at starts clamped at both ends or whole: consumed,
+    offsets and taps equal but on channels within 1e-4 samples of a bin
+    edge, tau and drift within 1e-3 samples; step_batched's symbols equal
+    the plain MF on the kernel's own taps and offsets."""
+    from dvbs2rx_tpu_torch.ops import ffsync_cuda
+    from dvbs2rx_tpu_torch.ops.ffsync import FeedForwardSync, FFSyncState
+
+    sync = FeedForwardSync(sps=2, max_block=n_out, device=card)
+    tx = Transmitter(TxConfig(modcod="qpsk1/2", frame_size="short"))
+    rng = np.random.default_rng(n_out)
+    pkts = rng.integers(0, 256, (300, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    wave = cplx.from_np(awgn_channel(tx.ts_to_iq(pkts.reshape(-1)), 10.0,
+                                     sps=2, seed=3))
+    length = 2 * n_out + sync.history() + 64
+    N = length + 2000 if in_place else length
+    x = torch.from_numpy(np.stack([wave[o: o + N] for o in
+                                   (0, 333, 1201, 1999)])).to(card)
+    start = torch.tensor([-9, 700, N - length + 5, N], dtype=torch.int32,
+                         device=card) if in_place else None
+    st = FFSyncState(
+        tau=torch.tensor([0.0, 0.3, 1.6, -0.7], device=card),
+        rate=torch.tensor([0.0, 1e-4, -2e-4, 2.2e-4], device=card),
+        initialized=torch.tensor([0, 1, 1, 1], dtype=torch.int32,
+                                 device=card))
+    before = ffsync_cuda.LAUNCHES
+    kw = dict(start=start, length=length) if in_place else {}
+    new, taps, off, cons = sync._track(st, x, n_out, **kw)
+    assert ffsync_cuda.LAUNCHES == before + 1
+    block = cplx.window_rows(x, start, length) if in_place else x
+    want = sync._track_plain(st, block, n_out)
+    margin = ffsync_cuda.edge_margin(sync, st, block, n_out)
+    differ = ((cons != want[3]) | (off != want[2]).any(1)
+              | (taps != want[1]).flatten(1).any(1))
+    assert not bool((differ & (margin >= 1e-4)).any())
+    assert float((new.tau - want[0].tau).abs().max()) <= 1e-3
+    assert float((new.rate - want[0].rate).abs().max()) * n_out <= 1e-3
+    _, syms, _ = sync.step_batched(st, x, n_out, **kw)
+    S = taps.shape[1]
+    if S > 1:
+        ref = fir_cuda.mf_segmented_plain(block, taps, off, 2, n_out // S,
+                                          sync._off)
+        rms = float(ref.square().mean().sqrt())
+        assert float((syms - ref).abs().max()) <= 1e-5 * rms
+
+
+@pytest.mark.parametrize("C,S,seg_len,L,off", [(4, 15, 333, 21, 23),
+                                               (1, 1, 1000, 21, 16)])
+def test_mf_kernel_reads_in_place(card, C, S, seg_len, L, off):
+    """Per-channel block starts into a longer buffer, clamped at both
+    ends, odd and even (8-byte and 16-byte aligned rows): the kernel
+    within 1e-5 of the plain version on the gathered blocks, one launch
+    recorded under the in-place layout."""
+    rng = np.random.default_rng(seg_len + 7)
+    length = (S * seg_len - 1) * 2 + L + off + 3
+    n = length + 101
+    x = torch.from_numpy(rng.normal(size=(C, n, 2)).astype(
+        np.float32)).to(card)
+    taps = torch.from_numpy((rng.normal(size=(C, S, L)) / np.sqrt(L)).astype(
+        np.float32)).to(card)
+    base = torch.from_numpy(rng.integers(-3, off + 4, (C, S)).astype(
+        np.int32)).to(card)
+    start = torch.tensor([-4, n, 37, 50][:C], dtype=torch.int32,
+                         device=card)
+    key = (C, n, S, seg_len, L, 2, off, length)
+    shape_before = fir_cuda.LAUNCH_SHAPES.get(key, 0)
+    got = fir_cuda.mf_segmented(x, taps, base, 2, seg_len, off, start,
+                                length)
+    assert fir_cuda.LAUNCH_SHAPES[key] == shape_before + 1
+    want = fir_cuda.mf_segmented_plain(cplx.window_rows(x, start, length),
+                                       taps, base, 2, seg_len, off)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_stream_frontend_in_a_graph_replays_the_eager_bytes(card):
+    """The CCM step's front end (AGC partial sums with their scratch, the
+    rotate-and-append kernel, the tracker and the MF in place) captured as
+    one CUDA graph after a warm-up call: a replay writes the eager call's
+    bytes (fixed-order sums, no atomics)."""
+    sr = StreamReceiver(RxConfig(modcod="qpsk1/2", frame_size="short"), 4,
+                        device=card)
+    rng = np.random.default_rng(31)
+    st = sr.init_state_np()
+    st["sbuf"][:] = rng.normal(size=st["sbuf"].shape)
+    st["sfill"][:] = sr._n_fe - sr.n_in + 17
+    st["rot_inc"][:] = 2e-3
+    state = state_from_numpy(st, card)
+    iq = torch.from_numpy(rng.normal(size=(4, sr.n_in, 2)).astype(
+        np.float32)).to(card)
+    want = sr._frontend(state, iq)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        sr._frontend(state, iq)
+    torch.cuda.current_stream(card).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = sr._frontend(state, iq)
+    g.replay()
+    torch.cuda.synchronize()
+    for k in ("sbuf", "sfill", "agc_gain", "rot_phase", "ff_tau", "ff_rate"):
+        assert torch.equal(out[0][k], want[0][k]), k
+    assert torch.equal(out[1], want[1])

@@ -7,7 +7,8 @@
   selected subfilter taps; ``tau``/``rate`` within rtol 1e-5; symbols
   within atol 1e-4. Covers the multi-window (n >= 16384), single-window and
   one-segment (``mf_decimate``) paths.
-- ``rotate_block``: atol 1e-5 (float32 cos/sin of the same phases).
+- ``rotate_block``: atol 1e-5 (float32 cos/sin of the same phases), against
+  the jitted JAX function (XLA contracts its phase into an FMA).
 - ``plsync.timing_metric``: rtol 1e-5 plus atol 1e-4 on metric values up to
   ~57 (57 taps summed in the JAX order).
 """
@@ -89,7 +90,9 @@ def test_rotate_block_matches_jax():
     iq = rng.normal(size=(3, 5000, 2)).astype(np.float32)
     ph0 = np.asarray([0.0, 1.3, 6.0], np.float32)
     inc = np.asarray([0.0, 1e-3, -2.5e-2], np.float32)
-    want, want_ph = jax.vmap(j_rotate_block)(
+    # jitted, as the JAX receivers run it: XLA then forms the phase
+    # phase0 + inc * n as one FMA, as the port does
+    want, want_ph = jax.jit(jax.vmap(j_rotate_block))(
         jnp.asarray(iq), jnp.asarray(ph0), jnp.asarray(inc))
     got, got_ph = rotate_block(torch.from_numpy(iq), torch.from_numpy(ph0),
                                torch.from_numpy(inc))

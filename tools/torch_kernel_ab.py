@@ -2,6 +2,7 @@
 """Time the CUDA kernels of several checkouts of this repository, in turns.
 
     python3 tools/torch_kernel_ab.py ROOT [ROOT ...] [--rounds 1]
+    python3 tools/torch_kernel_ab.py ROOT [ROOT ...] --frontend
 
 Each round runs the checkouts in the order given and then in reverse, every
 run in a process of its own that builds that checkout's kernels and times
@@ -52,9 +53,25 @@ them on ``chip_smoke.py``'s inputs with its timer (``_time_ms``: median of
   through that, an older one through ``_walk``; null for a checkout
   without the walk kernel.
 
+With ``--frontend`` each run times the shared front end instead, and
+nothing else:
+
+* ``fe_ccm_*`` and ``fe_vcm_*``: ``StreamFrontEnd._frontend`` (AGC,
+  rotator, buffer append, O&M tracker and matched filter) of a 64-channel
+  ``StreamReceiver`` (QPSK 1/2 normal, 2 frames a step) and
+  ``VCMStreamReceiver`` (piloted PLS 17 + 49) on a seeded state (sample
+  buffer full to a steady step's fill, tracker initialised, a rotator
+  increment of 1e-3 rad a sample) and a seeded noise block: the profiler's
+  device time of all the call's kernels (``_device_ms``), its kernel
+  launches, and the CUDA-event time (``_events_ms``);
+* ``fe_bench_*``: the bench's front-end call, ``FeedForwardSync.
+  step_batched`` at C = 64 and 32,768 symbols on its stimulus, the same
+  three figures, and ``frontend_msps``, the bench section's own record
+  (``bench.measure_frontend``).
+
 It prints one JSON line per run, with a digest of the LDPC case's four
-outputs, and a last line with each checkout's times and whether every
-digest agrees. The timer and the inputs come from this checkout's
+outputs (of the front end's outputs with ``--frontend``), and a last line
+with each checkout's times and whether every digest agrees. The timer and the inputs come from this checkout's
 ``chip_smoke.py``; the kernels from each ROOT. Needs one CUDA card.
 """
 
@@ -68,7 +85,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def child(root: str):
+def child(root: str, frontend: bool = False):
     import numpy as np
     import torch
 
@@ -76,6 +93,8 @@ def child(root: str):
     import chip_smoke
 
     sys.path.insert(0, str(Path(root).resolve()))
+    if frontend:
+        return print(json.dumps({"root": root, **_frontend_times()}))
     from dvbs2rx_tpu_torch.ops import fir_cuda, ldpc_cuda
 
     # the checkout's own code tables, wherever that checkout imports them
@@ -284,6 +303,96 @@ def _walk_times():
     return out
 
 
+FE_KEYS = tuple(f"fe_{p}_{k}" for p in ("ccm", "vcm", "bench")
+                for k in ("device_ms", "launches", "events_ms")) + (
+    "frontend_msps",)
+
+
+def _device_ms(fn, calls=10):
+    """Device time of one call of fn (every kernel it launches, summed)
+    and its kernel launches, from torch.profiler over ``calls`` calls after
+    a warm-up round."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / calls,
+            sum(e.count for e in ev) / calls)
+
+
+def _frontend_times():
+    """The checkout's shared front end: the CCM and VCM steps' _frontend
+    on a seeded steady state and block, and the bench's front-end call."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from dvbs2rx_tpu_torch import bench
+    from dvbs2rx_tpu_torch.ops import cplx
+    from dvbs2rx_tpu_torch.ops.ffsync import FeedForwardSync
+    from dvbs2rx_tpu_torch.rx.receiver import RxConfig
+    from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+    from dvbs2rx_tpu_torch.spec.pls import make_pls
+
+    C, F, dev = chip_smoke.C, chip_smoke.F, "cuda"
+    rng = np.random.default_rng(2045)
+    h = hashlib.sha256()
+    out = {}
+    vcfg = RxConfig(modcod="qpsk1/2", frame_size="normal", acm_vcm=True,
+                    pls_expected=(make_pls(4, False, True),
+                                  make_pls(12, False, True)))
+    for path, sr in (
+            ("ccm", StreamReceiver(RxConfig(modcod="qpsk1/2",
+                                            frame_size="normal"), C, F,
+                                   device=dev)),
+            ("vcm", VCMStreamReceiver(vcfg, C, F, device=dev))):
+        st = sr.init_state_np()
+        st["sbuf"][:] = rng.normal(size=st["sbuf"].shape)
+        st["sfill"][:] = sr._n_fe - sr.n_in + rng.integers(0, 64, C)
+        st["ff_tau"][:] = rng.uniform(0, 2, C)
+        st["ff_init"][:] = 1
+        st["rot_inc"][:] = 1e-3
+        state = {k: torch.as_tensor(v, device=dev) for k, v in st.items()}
+        iq = torch.from_numpy(rng.normal(size=(C, sr.n_in, 2)).astype(
+            np.float32)).to(dev)
+        fn = (lambda sr=sr, state=state, iq=iq: sr._frontend(state, iq))
+        new, syms, _, _ = fn()
+        h.update(syms.cpu().numpy().tobytes())
+        out[f"fe_{path}_device_ms"], out[f"fe_{path}_launches"] = \
+            _device_ms(fn)
+        out[f"fe_{path}_events_ms"] = chip_smoke._time_ms(fn)
+        del sr, state, new
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="normal")
+    _, _, noisy = bench.group_fec_stimulus(2, "normal", bench.ESN0_DB)
+    sync = FeedForwardSync(sps=cfg.sps, rolloff=cfg.rolloff, device=dev)
+    n_out = bench.FE_N_OUT
+    n = n_out * cfg.sps + sync.history() + 64
+    x = torch.as_tensor(cplx.from_np(np.stack(
+        [np.resize(noisy, n).astype(np.complex64)] * C)), device=dev)
+    st0 = sync.step_batched(sync.init_state(C), x, n_out)[0]
+    fn = (lambda: sync.step_batched(st0, x, n_out))
+    h.update(fn()[1].cpu().numpy().tobytes())
+    out["fe_bench_device_ms"], out["fe_bench_launches"] = _device_ms(fn)
+    out["fe_bench_events_ms"] = chip_smoke._time_ms(fn)
+    out["frontend_msps"] = bench.measure_frontend(C, device=dev)[
+        "frontend_msps"]
+    out["digest"] = h.hexdigest()[:16]
+    return out
+
+
 def _crc8_times(h):
     """The CRC-8 kernel of the checkout on phase 11's S2_B4 Tx BBFRAMEs:
     CUDA events and the profiler's device time."""
@@ -339,9 +448,10 @@ def main():
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--child")
+    ap.add_argument("--frontend", action="store_true")
     args = ap.parse_args()
     if args.child:
-        return child(args.child)
+        return child(args.child, args.frontend)
     sys.path.insert(0, str(ROOT))
     from dvbs2rx_tpu_torch import bench
 
@@ -349,7 +459,8 @@ def main():
     runs = []
     for _ in range(args.rounds):
         for root in args.roots + args.roots[::-1]:
-            r = subprocess.run([sys.executable, __file__, "--child", root],
+            r = subprocess.run([sys.executable, __file__, "--child", root]
+                               + ["--frontend"] * args.frontend,
                                capture_output=True, text=True)
             if r.returncode != 0:
                 raise RuntimeError(f"{root}: exit {r.returncode}\n"
@@ -357,11 +468,12 @@ def main():
             line = r.stdout.strip().splitlines()[-1]
             print(line, flush=True)
             runs.append(json.loads(line))
+    keys = FE_KEYS if args.frontend else (
+        "ldpc_ms", "ldpc_iter_us", "mf_ms", "gardner_ms", "gardner_sps4_ms",
+        "bch_ms", "bch_clean_ms", "crc8_ms", "crc8_device_ms", *PLSYNC_KEYS,
+        *WALK_KEYS)
     summary = {root: {k: [x[k] for x in runs if x["root"] == root]
-                      for k in ("ldpc_ms", "ldpc_iter_us", "mf_ms",
-                                "gardner_ms", "gardner_sps4_ms", "bch_ms",
-                                "bch_clean_ms", "crc8_ms", "crc8_device_ms",
-                                *PLSYNC_KEYS, *WALK_KEYS)}
+                      for k in keys}
                for root in args.roots}
     print(json.dumps({"runs": summary,
                       "same_outputs": len({x["digest"] for x in runs}) == 1}))

@@ -130,7 +130,7 @@ def main():
             err = lib.mf_segmented_launch(
                 x.data_ptr(), taps.data_ptr(), base.data_ptr(), y.data_ptr(),
                 C, n, S, seg_len, L, sps, off, plan.chunk, plan.n_chunks,
-                stream)
+                None, 0, stream)
             if err:
                 raise RuntimeError(f"{name}: launch error {err}")
             return y

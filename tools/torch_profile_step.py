@@ -92,10 +92,12 @@ BOOKKEEPING = "step bookkeeping"
 # CUDA runtime, whose launches the profiler does not tie to the operator
 # around them: their device time goes to a module by kernel name instead.
 KERNEL_MODULES = {
-    "ccm": (("mf_segmented", "O&M timing"), ("ldpc", "FEC (LDPC + BCH)"),
+    "ccm": (("mf_segmented", "O&M timing"), ("ffsync_track", "O&M timing"),
+            ("frontend_", "front-end glue"), ("ldpc", "FEC (LDPC + BCH)"),
             ("bch_", "FEC (LDPC + BCH)"), ("crc8", "CRC-8"),
             ("plsync_", "lane program (PL sync + demap)")),
-    "vcm": (("mf_segmented", "O&M timing"), ("vcm_walk", "VCM walk"),
+    "vcm": (("mf_segmented", "O&M timing"), ("ffsync_track", "O&M timing"),
+            ("frontend_", "front-end glue"), ("vcm_walk", "VCM walk"),
             ("ldpc", "FEC decode (LDPC + BCH)"),
             ("bch_", "FEC decode (LDPC + BCH)"),
             ("plsync_header", "PLHEADER kernel"),
