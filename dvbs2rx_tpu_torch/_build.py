@@ -58,6 +58,8 @@ _SIGNATURES = {
     "frontend_tile_rows": [],
     "ffsync_track_launch": [_P] * 15 + [_I] * 13 + [_F] * 6 + [_P],
     "ffsync_piece_samples": [],
+    "ffsync_track_plan": [_I],
+    "ffsync_track_smem_bytes": [_I] * 2,
 }
 
 _lock = threading.Lock()

@@ -108,6 +108,9 @@ class FeedForwardSync:
         self._hb_even_rev = torch.as_tensor(
             np.ascontiguousarray(hb[0::2][::-1]), device=self.device
         )
+        # the same taps on the host: the tracker kernel takes them in its
+        # arguments
+        self._hb_even_rev_np = np.ascontiguousarray(hb[0::2][::-1])
         self.max_block = max_block
         self._off = max(16, int(np.ceil(2 + 2 * sps + MAX_RATE * max_block)))
         self._history = self.subfilt_len + self._off + 2

@@ -9,32 +9,41 @@ run it. One launch of ``csrc/ffsync.cu`` does it all for every channel:
 the windows' O&M sums, the estimate (16 windows and a least-squares
 slope, or one window below ``MIN_MULTI_SAMP`` samples), the alpha-beta
 update, each segment's subfilter taps and offset, the slips and
-``consumed``; its source note says how and what bounds it.
+``consumed``; its source note says how and what bounds it. A channel is
+a thread block cluster of G blocks that share its pieces of 1,024
+samples (``plan`` mirrors the source's ``track_plan``; ``combine_order``
+states the order in which rank 0 adds their partial sums).
 
 ``track`` takes the block itself, or a longer buffer with per-channel
 starts (clamped as ``jax.lax.dynamic_slice`` clamps) that it reads in
-place. It reads nothing back and copies nothing from the host (its window
-tables come through ``utils.runtime.device_table``), so a CUDA graph can
+place. It reads nothing back and copies nothing from the host (the window
+starts and centres travel in the kernel's arguments), so a CUDA graph can
 hold it. ``FeedForwardSync._track`` dispatches: CUDA tensors launch the
 kernel or raise.
 """
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _build
-from ..utils.runtime import device_table
 
 LAUNCHES = 0        # kernel launches; incremented only where the kernel runs
 LAUNCH_SHAPES = {}  # the same launches by (C, N, length or None, n_out)
 
 PIECE = 1024        # kPiece of csrc/ffsync.cu: samples a piece
+GROUP = 128         # kGroup: threads a piece, 8 samples each
+WARPS = GROUP // 32  # warp partials a piece
+MAX_PER = 2         # kMaxPer: pieces a block
+MAX_CLUSTER = 8     # kMaxCluster: blocks a channel (the portable cluster)
 MAX_PIECES = 16     # kMaxPieces: windows x pieces a window
 MAX_WINDOWS = 16    # kMaxWindows
 MAX_SEGMENTS = 32   # kMaxSeg
+PIECE_BYTES = 9328  # kPieceBytes: a piece's padded staging, 16-byte rounded
+MAX_SMEM = 232_448  # shared memory a block can have on the H100
 TWO_PI = float(np.float32(2 * math.pi))
 
 
@@ -70,10 +79,47 @@ def _offsets_i32(n):
     return _window_offsets(n).astype(np.int32)
 
 
-def check_plan(n, est_window, S):
+class Plan(NamedTuple):
+    """A launch's work plan: G blocks a channel (one cluster), ``per``
+    pieces a block (one group of GROUP threads each), ``threads`` a
+    block."""
+    G: int
+    per: int
+    threads: int
+
+
+def plan(n_pieces):
+    """``track_plan`` of csrc/ffsync.cu: a channel's pieces over up to
+    MAX_CLUSTER blocks (a portable cluster), at most one a piece,
+    ceil(pieces / MAX_CLUSTER) a block; then the fewest blocks that take
+    them at that many a block. Block rank r takes pieces r per .. r per +
+    per - 1."""
+    per = -(-n_pieces // MAX_CLUSTER)
+    return Plan(-(-n_pieces // per), per, per * GROUP)
+
+
+def combine_order(W, ppw, per):
+    """The order in which rank 0 adds the warp partials: window by
+    window, each window's pieces (piece p = window x ppw + k) in order,
+    each piece's WARPS warps in order; as (window, piece, block rank,
+    piece slot in that block, warp) tuples. Each window's sum starts from
+    0.0 and adds these in turn (the one-block design's order)."""
+    return [(w, p, p // per, p % per, u)
+            for w in range(W) for p in range(w * ppw, (w + 1) * ppw)
+            for u in range(WARPS)]
+
+
+def smem_bytes(per, bank_floats):
+    """``track_smem_bytes``: a block's dynamic shared memory, its pieces'
+    staging, which rank 0 reuses for the subfilter bank."""
+    return max(per * PIECE_BYTES, -(-bank_floats * 4 // 16) * 16)
+
+
+def check_plan(n, est_window, S, bank_floats=0):
     """Raise where the kernel's fixed sizes do not take the block: at most
     MAX_PIECES pieces of PIECE samples over the windows, MAX_WINDOWS
-    windows and MAX_SEGMENTS segments."""
+    windows and MAX_SEGMENTS segments, and a subfilter bank that fits a
+    block's shared memory (rank 0 stages it where its pieces were)."""
     _, W, wlen, _ = windows(n, est_window)
     pieces = W * -(-wlen // PIECE)
     if W > MAX_WINDOWS or pieces > MAX_PIECES or S > MAX_SEGMENTS:
@@ -81,6 +127,9 @@ def check_plan(n, est_window, S):
                          f"({pieces} pieces), {S} segments: the kernel "
                          f"takes {MAX_WINDOWS} windows, {MAX_PIECES} pieces "
                          f"of {PIECE} and {MAX_SEGMENTS} segments")
+    if smem_bytes(MAX_PER, bank_floats) > MAX_SMEM - 1024:
+        raise ValueError(f"O&M tracker: a subfilter bank of {bank_floats} "
+                         f"floats does not fit a block's shared memory")
 
 
 def track(sync, state, samples, n_out, start=None, length=None):
@@ -104,7 +153,7 @@ def track(sync, state, samples, n_out, start=None, length=None):
     if not 1 <= n <= N:
         raise ValueError(f"block length {n} outside 1..{N}")
     S = sync.segments(n_out)
-    check_plan(n, sync.est_window, S)
+    check_plan(n, sync.est_window, S, sync.bank.numel())
     dev = samples.device
     leaves = (state.tau, state.rate, state.initialized)
     for x, dt in zip(leaves, (torch.float32, torch.float32, torch.int32)):
@@ -116,9 +165,12 @@ def track(sync, state, samples, n_out, start=None, length=None):
         raise ValueError(f"start {tuple(start.shape)}: (C,) on {dev}")
     if not samples.is_contiguous() or samples.data_ptr() % 8:
         raise ValueError("samples must be contiguous and 8-byte aligned")
-    if sync.bank.device != dev or sync._hb_even_rev.device != dev:
-        raise ValueError(f"the FeedForwardSync's tables are on "
+    if sync.bank.device != dev:
+        raise ValueError(f"the FeedForwardSync's subfilter bank is on "
                          f"{sync.bank.device}, the samples on {dev}")
+    if not sync.bank.is_contiguous() or sync.bank.data_ptr() % 16:
+        raise ValueError("the subfilter bank must be contiguous and "
+                         "16-byte aligned")
     return _launch(sync, leaves, samples, n_out, start, n, S)
 
 
@@ -133,8 +185,8 @@ def _launch(sync, leaves, samples, n_out, start, n, S):
     multi, W, wlen, offs = windows(n, sync.est_window)
     sps = sync.sps
     L = sync.subfilt_len
-    bank, hb = sync.bank, sync._hb_even_rev
-    wc = device_table(_window_centres(n, sps), dev) if multi else None
+    bank = sync.bank
+    wc = _window_centres(n, sps) if multi else None
     f32 = torch.empty((2, C), dtype=torch.float32, device=dev)
     i32 = torch.empty((2, C), dtype=torch.int32, device=dev)
     taps = torch.empty((C, S, L), dtype=torch.float32, device=dev)
@@ -142,8 +194,8 @@ def _launch(sync, leaves, samples, n_out, start, n, S):
     c_sym = min(sync.est_window, n) / (2.0 * sps)
     err = _build.lib().ffsync_track_launch(
         samples.data_ptr(), None if st is None else st.data_ptr(),
-        device_table(offs, dev).data_ptr(),
-        None if wc is None else wc.data_ptr(), hb.data_ptr(),
+        offs.ctypes.data, None if wc is None else wc.ctypes.data,
+        sync._hb_even_rev_np.ctypes.data,
         bank.data_ptr(), *(x.data_ptr() for x in ins), f32[0].data_ptr(),
         f32[1].data_ptr(), i32[0].data_ptr(), taps.data_ptr(),
         off.data_ptr(), i32[1].data_ptr(), C, N, n, W, wlen, int(multi), L,

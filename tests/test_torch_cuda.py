@@ -1878,17 +1878,23 @@ def test_frontend_kernel_constants_match_the_wrapper(card):
     assert lib.frontend_chunk_samples() == frontend_cuda.CHUNK
     assert lib.frontend_tile_rows() == frontend_cuda.TILE_ROWS
     assert lib.ffsync_piece_samples() == ffsync_cuda.PIECE
+    # the tracker's plan and shared memory
+    for pieces in range(1, ffsync_cuda.MAX_PIECES + 1):
+        assert lib.ffsync_track_plan(pieces) == \
+            ffsync_cuda.plan(pieces).G, pieces
+    for per in range(1, ffsync_cuda.MAX_PER + 1):
+        for nb in (0, 2688, 2689, 10_752):
+            assert lib.ffsync_track_smem_bytes(per, nb) == \
+                ffsync_cuda.smem_bytes(per, nb)
 
 
-@pytest.mark.parametrize("n_out,in_place", [(9000, True), (9000, False),
-                                            (4096, True), (4099, False)])
-def test_ffsync_track_kernel_matches_plain(card, n_out, in_place):
-    """Multi-window (n_out 9000) and single-window blocks, in place from a
-    longer buffer at starts clamped at both ends or whole: consumed,
-    offsets and taps equal but on channels within 1e-4 samples of a bin
-    edge, tau and drift within 1e-3 samples; step_batched's symbols equal
-    the plain MF on the kernel's own taps and offsets."""
-    from dvbs2rx_tpu_torch.ops import ffsync_cuda
+def _track_inputs(card, n_out, in_place, C):
+    """A FeedForwardSync on the card and C channels of a seeded QPSK
+    short-frame waveform (offsets 0, 333, 1201, 1999 for C = 4, else 300
+    apart and odd on odd channels) at 10 dB: the block of n_out symbols,
+    or with ``in_place`` a buffer 2,000 rows longer and per-channel
+    starts (clamped at both ends, odd and even); the tracker state
+    initialised on all but channel 0."""
     from dvbs2rx_tpu_torch.ops.ffsync import FeedForwardSync, FFSyncState
 
     sync = FeedForwardSync(sps=2, max_block=n_out, device=card)
@@ -1900,20 +1906,40 @@ def test_ffsync_track_kernel_matches_plain(card, n_out, in_place):
                                      sps=2, seed=3))
     length = 2 * n_out + sync.history() + 64
     N = length + 2000 if in_place else length
-    x = torch.from_numpy(np.stack([wave[o: o + N] for o in
-                                   (0, 333, 1201, 1999)])).to(card)
-    start = torch.tensor([-9, 700, N - length + 5, N], dtype=torch.int32,
-                         device=card) if in_place else None
+    offs = (0, 333, 1201, 1999) if C == 4 else \
+        [300 * c + c % 2 for c in range(C)]
+    x = torch.from_numpy(np.stack([wave[o: o + N] for o in offs])).to(card)
+    starts = None
+    if in_place:
+        starts = [-9, 700, N - length + 5, N] if C == 4 else (
+            [-9, N, N - length - 3, 1000] + [
+                int(s) for s in rng.integers(0, N - length,
+                                             max(C - 4, 0))])[:C]
+    start = torch.tensor(starts, dtype=torch.int32, device=card) \
+        if in_place else None
+    tau = [0.0, 0.3, 1.6, -0.7] if C == 4 else rng.uniform(-1, 2, C)
+    rate = [0.0, 1e-4, -2e-4, 2.2e-4] if C == 4 else \
+        rng.uniform(-2e-4, 2e-4, C)
     st = FFSyncState(
-        tau=torch.tensor([0.0, 0.3, 1.6, -0.7], device=card),
-        rate=torch.tensor([0.0, 1e-4, -2e-4, 2.2e-4], device=card),
-        initialized=torch.tensor([0, 1, 1, 1], dtype=torch.int32,
+        tau=torch.tensor(np.float32(tau), device=card),
+        rate=torch.tensor(np.float32(rate), device=card),
+        initialized=torch.tensor([0] + [1] * (C - 1), dtype=torch.int32,
                                  device=card))
+    return sync, st, x, (dict(start=start, length=length) if in_place
+                         else {}), length
+
+
+def _check_track(sync, st, x, n_out, kw, length):
+    """One tracker launch against ``_track_plain`` on the same blocks:
+    consumed, offsets and taps equal but on channels within 1e-4 samples
+    of a bin edge, tau and drift within 1e-3 samples; step_batched's
+    symbols equal the plain MF on the kernel's own taps and offsets."""
+    from dvbs2rx_tpu_torch.ops import ffsync_cuda
+
     before = ffsync_cuda.LAUNCHES
-    kw = dict(start=start, length=length) if in_place else {}
     new, taps, off, cons = sync._track(st, x, n_out, **kw)
     assert ffsync_cuda.LAUNCHES == before + 1
-    block = cplx.window_rows(x, start, length) if in_place else x
+    block = cplx.window_rows(x, kw["start"], length) if kw else x
     want = sync._track_plain(st, block, n_out)
     margin = ffsync_cuda.edge_margin(sync, st, block, n_out)
     differ = ((cons != want[3]) | (off != want[2]).any(1)
@@ -1928,6 +1954,79 @@ def test_ffsync_track_kernel_matches_plain(card, n_out, in_place):
                                           sync._off)
         rms = float(ref.square().mean().sqrt())
         assert float((syms - ref).abs().max()) <= 1e-5 * rms
+
+
+@pytest.mark.parametrize("n_out,in_place,C", [
+    (9000, True, 4), (9000, False, 4), (4096, True, 4), (4099, False, 4),
+    (9000, True, 64),       # 16 windows, 8 blocks a channel
+    (8140, True, 1),        # one window of 16,383 samples: 8 blocks
+])
+def test_ffsync_track_kernel_matches_plain(card, n_out, in_place, C):
+    """Multi-window (n_out 9000) and single-window blocks (4,096 / 4,099
+    symbols: 9 pieces; 8,140: 16), in place from a longer buffer at starts
+    clamped at both ends, odd and even, or whole, at C = 4, 64 and 1 (the
+    plan's clusters of 8 and 5 blocks a channel): the kernel against the
+    plain tracker (``_check_track``); at C = 1 one launch per start."""
+    sync, st, x, kw, length = _track_inputs(card, n_out, in_place, C)
+    if C > 1:
+        _check_track(sync, st, x, n_out, kw, length)
+        return
+    N = x.shape[1]
+    for s in (-5, N, N - length - 3, 1000):
+        kw["start"] = torch.tensor([s], dtype=torch.int32, device=card)
+        _check_track(sync, st, x, n_out, kw, length)
+
+
+@pytest.mark.parametrize("n_out,C", [(9000, 64), (8140, 1)])
+def test_ffsync_track_in_a_graph_replays_the_eager_bytes(card, n_out, C):
+    """The tracker's cluster launch captured in a CUDA graph after a
+    warm-up call: each replay writes the eager launch's bytes (the
+    partials combined in a fixed order through distributed shared memory,
+    no atomics, no scratch)."""
+    sync, st, x, kw, _ = _track_inputs(card, n_out, True, C)
+    want = sync._track(st, x, n_out, **kw)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        sync._track(st, x, n_out, **kw)
+    torch.cuda.current_stream(card).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = sync._track(st, x, n_out, **kw)
+    for _ in range(3):
+        for t in (out[0].tau, out[0].rate, out[0].initialized, *out[1:]):
+            t.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        for a, b in zip((out[0].tau, out[0].rate, out[0].initialized,
+                         *out[1:]),
+                        (want[0].tau, want[0].rate, want[0].initialized,
+                         *want[1:])):
+            assert torch.equal(a, b)
+
+
+def test_ffsync_refused_cluster_launch_raises(card, monkeypatch):
+    """A launch the card refuses (a subfilter bank too large for a block's
+    shared memory) raises, counts no launch and never runs the plain
+    tracker; the wrapper refuses such a bank before launching."""
+    from dvbs2rx_tpu_torch.ops import ffsync_cuda
+    from dvbs2rx_tpu_torch.ops.ffsync import FeedForwardSync
+
+    _, st, x, _, length = _track_inputs(card, 4096, False, 4)
+    sync = FeedForwardSync(sps=2, max_block=4096, n_subfilt=4096,
+                           device=card)
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain tracker ran on CUDA tensors")
+
+    monkeypatch.setattr(sync, "_track_plain", plain)
+    before = ffsync_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        sync._track(st, x, 4096)
+    with pytest.raises(RuntimeError, match="ffsync_track_kernel"):
+        ffsync_cuda._launch(sync, (st.tau, st.rate, st.initialized), x,
+                            4096, None, length, sync.segments(4096))
+    assert ffsync_cuda.LAUNCHES == before
 
 
 @pytest.mark.parametrize("C,S,seg_len,L,off", [(4, 15, 333, 21, 23),

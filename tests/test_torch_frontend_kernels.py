@@ -22,12 +22,20 @@ and the wrappers' index math.
 - The in-place matched filter, ``mf_decimate`` and ``step_batched`` equal
   the gather-then-filter form exactly.
 - The wrappers' constants against the CUDA sources, the tracker's plan at
-  every path's block, the AGC's chunked partial sums in the kernel's order
+  every path's block (its clusters: at most 8 blocks a channel, every
+  piece taken once, the partials added window by window, piece by piece,
+  warp by warp), the AGC's chunked partial sums in the kernel's order
   (a numpy mirror: within 1e-15 of the float64 mean), the edge margin.
+- A numpy mirror of the tracker kernel's window sums (8 samples a thread
+  in double, the warp's shuffle tree, the partials in the plan's order)
+  and of lane 0's float32 chain gives the plain tracker's tau and drift
+  within the bench's TRACK_TOL samples.
+- The stamp tool's text edits fit this checkout's tracker source.
 """
 
 import math
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +61,7 @@ from dvbs2rx_tpu_torch.rx.stream import StreamReceiver, prime_agc
 torch.set_num_threads(2)
 
 CSRC = Path(__file__).resolve().parent.parent / "dvbs2rx_tpu_torch" / "csrc"
+TOOLS = CSRC.parent.parent / "tools"
 
 
 @pytest.fixture(scope="module")
@@ -261,6 +270,18 @@ def test_wrapper_constants_match_the_sources():
     assert _source_int("kMaxPieces", ff) == ffsync_cuda.MAX_PIECES
     assert _source_int("kMaxWindows", ff) == ffsync_cuda.MAX_WINDOWS
     assert _source_int("kMaxSeg", ff) == ffsync_cuda.MAX_SEGMENTS
+    # the cluster plan's constants and a piece's staging bytes
+    assert _source_int("kGroup", ff) == ffsync_cuda.GROUP
+    assert _source_int("kMaxPer", ff) == ffsync_cuda.MAX_PER
+    assert _source_int("kMaxCluster", ff) == ffsync_cuda.MAX_CLUSTER
+    assert "constexpr int kMaxThreads = kGroup * kMaxPer;" in ff
+    n = _source_int("kGroup", ff) * _source_int("kPer", ff)
+    halo = _source_int("kTaps", ff) - 1
+    assert "return i + (i >> 3);" in ff
+    slots = (n + halo) + (n + halo) // 8 + 1      # padded(kPiece + kHalo) + 1
+    assert (slots * 8 + 15) // 16 * 16 == ffsync_cuda.PIECE_BYTES
+    assert ("const int per = (n_pieces + kMaxCluster - 1) / kMaxCluster;"
+            in ff)
     # the O&M odd branch: 12 taps, 6 before and 5 after a sample
     assert (_source_int("kTaps", ff), _source_int("kLead", ff)) == (12, 6)
     assert np.float32(frontend_cuda.TWO_PI) == np.float32(2 * math.pi)
@@ -292,11 +313,192 @@ def test_tracker_plan_takes_every_paths_block(kind):
         n = 2 * n_out + sync.history() + 64
     multi, W, wlen, offs = ffsync_cuda.windows(n, sync.est_window)
     assert multi == (kind != "host")
-    ffsync_cuda.check_plan(n, sync.est_window, sync.segments(n_out))
+    ffsync_cuda.check_plan(n, sync.est_window, sync.segments(n_out),
+                           sync.bank.numel())
     assert offs.dtype == np.int32 and (offs % 2 == 0).all()
     assert int(offs.max()) + wlen <= n
     with pytest.raises(ValueError, match="33 segments"):
         ffsync_cuda.check_plan(n, sync.est_window, 33)
+    with pytest.raises(ValueError, match="shared memory"):
+        ffsync_cuda.check_plan(n, sync.est_window, 16, 4096 * 21)
+    # the cluster plan: at most 8 blocks a channel, at most MAX_PER pieces
+    # a block, every piece taken once, no idle block; the partials added
+    # window by window, piece by piece, warp by warp
+    ppw = -(-wlen // ffsync_cuda.PIECE)
+    pieces = W * ppw
+    G, per, threads = ffsync_cuda.plan(pieces)
+    assert 1 <= G <= ffsync_cuda.MAX_CLUSTER
+    assert 1 <= per <= ffsync_cuda.MAX_PER
+    assert threads == per * ffsync_cuda.GROUP
+    taken = [r * per + g for r in range(G) for g in range(per)
+             if r * per + g < pieces]
+    assert taken == list(range(pieces))
+    assert (G - 1) * per < pieces
+    order = ffsync_cuda.combine_order(W, ppw, per)
+    assert [(w, p, u) for w, p, _, _, u in order] == [
+        (w, p, u) for w in range(W) for p in range(w * ppw, (w + 1) * ppw)
+        for u in range(ffsync_cuda.WARPS)]
+    assert all((r, s) == divmod(p, per) for _, p, r, s, _ in order)
+    # 16 windows (the streams, the bench): 8 blocks of 2 pieces; a host
+    # block's window of 9 pieces (8,295 samples): 5 blocks of 2
+    assert (G, per, threads) == ((5, 2, 256) if kind == "host"
+                                 else (8, 2, 256))
+    for n_pieces in range(1, ffsync_cuda.MAX_PIECES + 1):
+        G, per, _ = ffsync_cuda.plan(n_pieces)
+        assert G <= ffsync_cuda.MAX_CLUSTER
+        assert (G - 1) * per < n_pieces <= G * per
+
+
+def _tree(v):
+    """``__shfl_xor_sync``'s butterfly over a warp's 32 lanes, lane 0's
+    sum (the kernels' warp_sum)."""
+    v = v.copy()
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[np.arange(32) ^ o]
+    return v[0]
+
+
+def _fma32(a, b, c):
+    """float32 fmaf: the product exact in float64, one rounding (the sum's
+    own float64 rounding aside, far below TRACK_TOL)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _mod32(x, m):
+    """mod_rn in float32 (ops/cplx.mod's arithmetic)."""
+    r = np.fmod(np.float32(x), np.float32(m))
+    return np.float32(r + m) if r != 0 and (r < 0) != (m < 0) else r
+
+
+def _kernel_tau(sync, tau_in, rate_in, init, block, n_out):
+    """A numpy mirror of the tracker kernel on one channel's block (n, 2)
+    float32: each piece's 128 threads sum 8 consecutive samples' O&M terms
+    in double, each warp's shuffle tree, the partials added in the plan's
+    ``combine_order``, each window's atan2, then lane 0's float32 chain:
+    (tau', rate')."""
+    f32 = np.float32
+    n = block.shape[0]
+    multi, W, wlen, offs = ffsync_cuda.windows(n, sync.est_window)
+    ppw = -(-wlen // ffsync_cuda.PIECE)
+    per = ffsync_cuda.plan(W * ppw).per
+    hb = sync._hb_even_rev.numpy()
+    cc = f32(sync._center * sync._center)
+    parts = {}
+    for p in range(W * ppw):
+        w, k0 = divmod(p, ppw)
+        k0 *= ffsync_cuda.PIECE
+        win = block[int(offs[w]): int(offs[w]) + wlen]
+        ks = np.arange(k0 - 6, k0 + ffsync_cuda.PIECE + 5)
+        ok = (ks >= 0) & (ks < wlen)
+        stage = np.zeros((ks.size, 2), np.float32)
+        stage[ok] = win[ks[ok]]
+        k = np.arange(k0, k0 + ffsync_cuda.PIECE)
+        o = np.zeros((k.size, 2), np.float32)
+        for j in range(12):
+            o = _fma32(stage[k - k0 + j], hb[j], o)
+        xs = stage[k - k0 + 6]
+        se = (cc * (xs[:, 0] * xs[:, 0] + xs[:, 1] * xs[:, 1])).astype(f32)
+        so = (o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1]).astype(f32)
+        sign = np.where(k % 2 == 1, -1.0, 1.0)
+        live = k < wlen
+        t_re = np.where(live, sign * se, 0.0).reshape(128, 8)
+        t_im = np.where(live & (k != 0), sign * so, 0.0).reshape(128, 8)
+        re, im = np.zeros(128), np.zeros(128)
+        for r in range(8):                   # each thread's sum in order
+            re, im = re + t_re[:, r], im + t_im[:, r]
+        for u in range(ffsync_cuda.WARPS):
+            parts[(p // per, p % per, u)] = (_tree(re[32 * u: 32 * u + 32]),
+                                             _tree(im[32 * u: 32 * u + 32]))
+    sums = np.zeros((W, 2))
+    for w, _, r, s, u in ffsync_cuda.combine_order(W, ppw, per):
+        sums[w] += parts[(r, s, u)]
+    sps, half = f32(sync.sps), f32(sync.sps / 2)
+    tw = [f32(f32(-np.arctan2(f32(i), f32(q))) / f32(ffsync_cuda.TWO_PI)
+              * sps) for q, i in sums]
+    if multi:
+        from dvbs2rx_tpu_torch.ops.ffsync import _window_centres
+
+        wc = _window_centres(n, sync.sps)
+        t_un = [f32(0)]
+        for i in range(1, W):
+            d = f32(_mod32(f32(f32(tw[i] - tw[i - 1]) + half), sps) - half)
+            t_un.append(f32(t_un[-1] + d))
+        sw = st = f32(0)
+        for i in range(W):
+            sw, st = f32(sw + wc[i]), f32(st + t_un[i])
+        wbar, tbar = f32(sw / f32(W)), f32(st / f32(W))
+        num = den = f32(0)
+        for i in range(W):
+            dw = f32(wc[i] - wbar)
+            num = f32(num + f32(dw * f32(t_un[i] - tbar)))
+            den = f32(den + f32(dw * dw))
+        slope = f32(num / den)
+        tau_meas = _mod32(f32(f32(tw[0] + tbar) - f32(slope * wbar)), sps)
+        mr = f32(2.5e-4)
+        rate_meas = f32(min(max(slope, -mr), mr))
+        innov = f32(_mod32(f32(f32(tau_meas - tau_in) + half), sps) - half)
+        g = f32(sync.rate_gain)
+        rate = f32(min(max(f32(f32(rate_in + f32(g * f32(rate_meas - rate_in)))
+                               + f32(f32(g * innov) / f32(n_out))), -mr), mr)) \
+            if init else rate_meas
+        tau0 = f32(tau_in + f32(f32(sync.smooth) * innov)) if init \
+            else tau_meas
+    else:
+        tau_meas = _mod32(tw[0], sps)
+        c_sym = f32(min(sync.est_window, n) / (2.0 * sync.sps))
+        pred = f32(tau_in + f32(rate_in * c_sym))
+        innov = f32(_mod32(f32(f32(tau_meas - pred) + half), sps) - half)
+        tau0 = f32(tau_in + f32(f32(sync.smooth) * innov)) if init \
+            else tau_meas
+        rate = f32(min(max(f32(rate_in + f32(f32(f32(sync.rate_gain) * innov)
+                                               / f32(n_out))), -2.5e-4),
+                       2.5e-4)) if init else f32(0)
+    pos_end = f32(tau0 + f32(rate * f32(n_out)))
+    slip = 0 if -half <= pos_end < 3 * half else int(np.floor(
+        f32(f32(pos_end + half) / sps)))
+    return f32(pos_end - f32(f32(slip) * sps)), rate
+
+
+@pytest.mark.parametrize("n_out", [9000, 4096])
+def test_kernel_sums_in_the_plans_order_give_the_plain_tau(waveform, n_out):
+    """The tracker kernel's arithmetic, mirrored in numpy in the plan's
+    order (``_kernel_tau``), against ``_track_plain`` on the seeded
+    waveform: tau and the drift over the block within TRACK_TOL samples,
+    multi-window (16 windows of one piece each) and single-window (9
+    pieces over 5 blocks), on a fresh and an initialised state."""
+    from dvbs2rx_tpu_torch.bench import TRACK_TOL
+
+    sync = FeedForwardSync(sps=2, max_block=n_out, device="cpu")
+    n = 2 * n_out + sync.history() + 64
+    x = cplx.from_np(waveform)
+    blocks = np.stack([x[o: o + n] for o in (0, 1201)])
+    st = FFSyncState(tau=torch.tensor([0.0, 1.3]),
+                     rate=torch.tensor([0.0, -1.2e-4]),
+                     initialized=torch.tensor([0, 1], dtype=torch.int32))
+    want, _, _, _ = sync._track_plain(st, torch.from_numpy(blocks), n_out)
+    for c in range(2):
+        tau, rate = _kernel_tau(sync, np.float32(st.tau[c]),
+                                np.float32(st.rate[c]),
+                                bool(st.initialized[c]), blocks[c], n_out)
+        dtau = (tau - float(want.tau[c]) + 1) % 2 - 1
+        assert abs(dtau) <= TRACK_TOL
+        assert abs(float(rate) - float(want.rate[c])) * n_out <= TRACK_TOL
+
+
+def test_ffsync_variant_edits_fit_the_source():
+    """``tools/torch_ffsync_variants.py``'s edits of this checkout's
+    tracker source each fit it exactly once."""
+    sys.path.insert(0, str(TOOLS))
+    try:
+        import torch_ffsync_variants as tool
+        from torch_variant_common import apply_edits
+    finally:
+        sys.path.remove(str(TOOLS))
+    src = (CSRC / "ffsync.cu").read_text()
+    for name, (side, edits) in tool.EDITS.items():
+        if side == "new":
+            assert apply_edits(src, edits).count("STAMP") >= \
+                2 * ("stamps" in name), name
 
 
 def test_agc_partial_sums_in_the_kernels_order():

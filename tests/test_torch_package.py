@@ -61,7 +61,8 @@ def test_every_module_imports_without_jax():
         assert "dvbs2rx_tpu_torch." + m in mods
     # the port's tools and examples, loaded from their files
     files = ["tools/torch_iqrec.py", "tools/torch_ber_sweep.py",
-             "tools/torch_crc8_variants.py", "tools/torch_microbench.py",
+             "tools/torch_crc8_variants.py", "tools/torch_ffsync_variants.py",
+             "tools/torch_microbench.py",
              "tools/torch_scaling_bench.py", "examples/torch_loopback_sim.py",
              "examples/torch_pl_sync_demo.py"]
     code = (

@@ -67,11 +67,20 @@ nothing else:
 * ``fe_bench_*``: the bench's front-end call, ``FeedForwardSync.
   step_batched`` at C = 64 and 32,768 symbols on its stimulus, the same
   three figures, and ``frontend_msps``, the bench section's own record
-  (``bench.measure_frontend``).
+  (``bench.measure_frontend``);
+* ``track_*_ms``: the O&M tracker kernel alone, the profiler's device
+  time: ``ccm``, ``vcm`` and ``bench`` on the arguments of the tracker
+  launch inside the calls above (its first), ``host_c1`` / ``host_c8``
+  on a host receiver's 4,096-symbol block (one window of 8,295 samples)
+  at 1 and 8 channels, ``host16k_c1`` / ``host16k_c8`` on one window of
+  16,383 samples (8,140 symbols), both from the bench's noisy stimulus
+  with the tracker state initialised.
 
 It prints one JSON line per run, with a digest of the LDPC case's four
-outputs (of the front end's outputs with ``--frontend``), and a last line
-with each checkout's times and whether every digest agrees. The timer and the inputs come from this checkout's
+outputs (with ``--frontend``: of the front end's outputs, and
+``track_digest``, of the tracker's alone at the seven shapes: tau, rate,
+initialized, taps, offsets, consumed), and a last line with each
+checkout's times and whether every digest agrees. The timer and the inputs come from this checkout's
 ``chip_smoke.py``; the kernels from each ROOT. Needs one CUDA card.
 """
 
@@ -303,9 +312,11 @@ def _walk_times():
     return out
 
 
+TRACK_SHAPES = ("ccm", "vcm", "bench", "host_c1", "host_c8", "host16k_c1",
+                "host16k_c8")
 FE_KEYS = tuple(f"fe_{p}_{k}" for p in ("ccm", "vcm", "bench")
                 for k in ("device_ms", "launches", "events_ms")) + (
-    "frontend_msps",)
+    "frontend_msps",) + tuple(f"track_{s}_ms" for s in TRACK_SHAPES)
 
 
 def _device_ms(fn, calls=10):
@@ -347,10 +358,22 @@ def _frontend_times():
     from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
     from dvbs2rx_tpu_torch.spec.pls import make_pls
 
+    from dvbs2rx_tpu_torch.ops import ffsync_cuda
+    from dvbs2rx_tpu_torch.ops.ffsync import FFSyncState
+
     C, F, dev = chip_smoke.C, chip_smoke.F, "cuda"
     rng = np.random.default_rng(2045)
-    h = hashlib.sha256()
+    h, th = hashlib.sha256(), hashlib.sha256()
     out = {}
+    track, launch = {}, ffsync_cuda._launch
+
+    def capture(shape):
+        """The wrapper's launch, keeping its first call's arguments (the
+        wrapper looks ``_launch`` up on the module)."""
+        def call(*args, **kw):
+            track.setdefault(shape, lambda: launch(*args, **kw))
+            return launch(*args, **kw)
+        return call
     vcfg = RxConfig(modcod="qpsk1/2", frame_size="normal", acm_vcm=True,
                     pls_expected=(make_pls(4, False, True),
                                   make_pls(12, False, True)))
@@ -369,7 +392,9 @@ def _frontend_times():
         iq = torch.from_numpy(rng.normal(size=(C, sr.n_in, 2)).astype(
             np.float32)).to(dev)
         fn = (lambda sr=sr, state=state, iq=iq: sr._frontend(state, iq))
+        ffsync_cuda._launch = capture(path)
         new, syms, _, _ = fn()
+        ffsync_cuda._launch = launch
         h.update(syms.cpu().numpy().tobytes())
         out[f"fe_{path}_device_ms"], out[f"fe_{path}_launches"] = \
             _device_ms(fn)
@@ -384,12 +409,35 @@ def _frontend_times():
         [np.resize(noisy, n).astype(np.complex64)] * C)), device=dev)
     st0 = sync.step_batched(sync.init_state(C), x, n_out)[0]
     fn = (lambda: sync.step_batched(st0, x, n_out))
+    ffsync_cuda._launch = capture("bench")
     h.update(fn()[1].cpu().numpy().tobytes())
+    ffsync_cuda._launch = launch
+    for C_h in (1, 8):
+        for name, n_out_h in (("host", 4096), ("host16k", 8140)):
+            sh = FeedForwardSync(sps=cfg.sps, rolloff=cfg.rolloff,
+                                 max_block=n_out_h, device=dev)
+            n_h = n_out_h * cfg.sps + sh.history() + 64
+            xh = torch.as_tensor(cplx.from_np(np.stack(
+                [np.resize(noisy[97 * c:], n_h).astype(np.complex64)
+                 for c in range(C_h)])), device=dev)
+            sth = FFSyncState(
+                tau=torch.linspace(0.1, 1.9, C_h, device=dev),
+                rate=torch.full((C_h,), 3e-5, device=dev),
+                initialized=torch.ones(C_h, dtype=torch.int32, device=dev))
+            track[f"{name}_c{C_h}"] = (
+                lambda sh=sh, sth=sth, xh=xh, n=n_out_h: sh._track(sth, xh, n))
+    for shape in TRACK_SHAPES:
+        st, taps, off, cons = track[shape]()
+        for t in (st.tau, st.rate, st.initialized, taps, off, cons):
+            th.update(t.cpu().numpy().tobytes())
+        out[f"track_{shape}_ms"] = chip_smoke._profiled_device_ms(
+            track[shape], "ffsync_track_kernel")
     out["fe_bench_device_ms"], out["fe_bench_launches"] = _device_ms(fn)
     out["fe_bench_events_ms"] = chip_smoke._time_ms(fn)
     out["frontend_msps"] = bench.measure_frontend(C, device=dev)[
         "frontend_msps"]
     out["digest"] = h.hexdigest()[:16]
+    out["track_digest"] = th.hexdigest()[:16]
     return out
 
 
@@ -475,8 +523,11 @@ def main():
     summary = {root: {k: [x[k] for x in runs if x["root"] == root]
                       for k in keys}
                for root in args.roots}
-    print(json.dumps({"runs": summary,
-                      "same_outputs": len({x["digest"] for x in runs}) == 1}))
+    same = {"same_outputs": len({x["digest"] for x in runs}) == 1}
+    if args.frontend:
+        same["same_track_outputs"] = len({x["track_digest"]
+                                          for x in runs}) == 1
+    print(json.dumps({"runs": summary, **same}))
 
 
 if __name__ == "__main__":
