@@ -60,6 +60,8 @@ _SIGNATURES = {
     "ffsync_piece_samples": [],
     "ffsync_track_plan": [_I],
     "ffsync_track_smem_bytes": [_I] * 2,
+    "rxspan_launch": [_I, _P],
+    "rxspan_graph_nodes": [_P, _P],
 }
 
 _lock = threading.Lock()

@@ -60,7 +60,9 @@ from ..parallel.batch import make_lane_fn
 from ..parallel.mesh import Mesh
 from ..spec.bb_frame import BatchTSStitcher
 from ..spec.scramblers import bb_derandomizer_bytes
+from ..utils import spans
 from ..utils.runtime import device_table, resolve_device
+from ..utils.spans import span
 from .receiver import (
     FECStage,
     RxConfig,
@@ -279,118 +281,135 @@ class StreamReceiver(StreamFrontEnd):
         return ScanStep(self, T)
 
     def _step(self, state, iq, sync_free):
+        """One step through the stages of ``utils.spans.STAGES``, each
+        under its span."""
         cfg = self.cfg
         C, F, n_out = self.n_channels, self.F, self.n_out
         B = C * F
         sps = cfg.sps
-        st, syms, overflow, underflow = self._frontend(state, iq)
-        sym_all = torch.cat([st["sym_tail"], syms], dim=1)      # (C, T, 2)
-        fp = st["fp"]
-        hdr, hdr3, first = self._windows(sym_all, fp)
+        dev = self.device
+        with span("inputs", dev):
+            iq = torch.as_tensor(iq, device=dev)
+        with span("frontend", dev):
+            st, syms, overflow, underflow = self._frontend(state, iq)
+        with span("windows", dev):
+            sym_all = torch.cat([st["sym_tail"], syms], dim=1)  # (C, T, 2)
+            fp = st["fp"]
+            hdr, hdr3, first = self._windows(sym_all, fp)
 
         # ---- per-lane PL processing + demap (lane b = c*F + f), the
         # payloads read in place from sym_all ----
-        start = (first[:, None] + device_table(self._pay_off, fp.device)
-                 ).reshape(B)
-        sym = sym_all[:, None].expand((C, F) + sym_all.shape[1:])
-        n0_ov = torch.where(st["n0_refined"] > 0, st["n0_refined"],
-                            -1.0).repeat_interleave(F)
-        cc = st["coarse_corrected"].repeat_interleave(F)
-        out = self._lane(hdr[:, :F, 1:], hdr[:, 1:, 1:], sym, start, cc,
-                         n0_ov, x_every=F)
-        kbytes, n_corr, iters, ok, hard_t = self.fec.lane_major(out["llrs"],
-                                                                sync_free)
-        ts_ok, hdr_ok = packet_validity(kbytes ^ self.fec.bb_scramble[None])
+        with span("plsync", dev):
+            start = (first[:, None] + device_table(self._pay_off, fp.device)
+                     ).reshape(B)
+            sym = sym_all[:, None].expand((C, F) + sym_all.shape[1:])
+            n0_ov = torch.where(st["n0_refined"] > 0, st["n0_refined"],
+                                -1.0).repeat_interleave(F)
+            cc = st["coarse_corrected"].repeat_interleave(F)
+            out = self._lane(hdr[:, :F, 1:], hdr[:, 1:, 1:], sym, start, cc,
+                             n0_ov, x_every=F)
+        with span("fec", dev):
+            kbytes, n_corr, iters, ok, hard_t = self.fec.lane_major(
+                out["llrs"], sync_free)
+            ts_ok, hdr_ok = packet_validity(
+                kbytes ^ self.fec.bb_scramble[None])
 
         # ---- post-decoder SNR refinement (frame 0 of each channel) ----
-        xfec_c = out["x0"]
-        hard_c = hard_t[:, ::F].t()
-        snr_ref = _snr_refine_frames(xfec_c, hard_c, cfg.constellation,
-                                     cfg.rate, cfg.pls_info.n_mod)
-        n0_refined = torch.where(snr_ref > 0, 1.0 / snr_ref.clamp(min=1e-9),
-                                 st["n0_refined"])
+        with span("snr", dev):
+            xfec_c = out["x0"]
+            hard_c = hard_t[:, ::F].t()
+            snr_ref = _snr_refine_frames(xfec_c, hard_c, cfg.constellation,
+                                         cfg.rate, cfg.pls_info.n_mod)
+            n0_refined = torch.where(snr_ref > 0,
+                                     1.0 / snr_ref.clamp(min=1e-9),
+                                     st["n0_refined"])
 
-        # ---- frame-alignment tracking (slips from the timing loop) ----
-        m3 = self._slip_metric(hdr3)                             # (C, 3)
-        center = m3[:, 1]
-        shift = torch.where(center + 1e-3 >= m3.max(dim=1).values, 0,
-                            m3.argmax(dim=1) - 1)
-        fp = (fp + shift).clamp(FP_MIN, FP_MAX)
+        with span("tracking", dev):
+            # ---- frame-alignment tracking (slips from the timing loop) ----
+            m3 = self._slip_metric(hdr3)                         # (C, 3)
+            center = m3[:, 1]
+            shift = torch.where(center + 1e-3 >= m3.max(dim=1).values, 0,
+                                m3.argmax(dim=1) - 1)
+            fp = (fp + shift).clamp(FP_MIN, FP_MAX)
 
-        # ---- lock maintenance ----
-        m_frames = out["metric"].reshape(C, F, 2)[:, :, 0]
-        unlock = st["unlock_cnt"]
-        for k in range(F):
-            unlock = torch.where(m_frames[:, k] > plsync.THRESHOLD_LOCKED, 0,
-                                 unlock + 1)
-        locked = unlock < cfg.unlock_thresh
+            # ---- lock maintenance ----
+            m_frames = out["metric"].reshape(C, F, 2)[:, :, 0]
+            unlock = st["unlock_cnt"]
+            for k in range(F):
+                unlock = torch.where(
+                    m_frames[:, k] > plsync.THRESHOLD_LOCKED, 0, unlock + 1)
+            locked = unlock < cfg.unlock_thresh
 
-        # ---- coarse accumulation with settle gating ----
-        acc = st["coarse_acc"]
-        cf = st["coarse_frames"]
-        settle = st["settle"]
-        corrected = st["coarse_corrected"]
-        coarse_est = st["coarse_foffset"]
-        autocorr = out["autocorr"].reshape(C, F, 89, 2)
-        new_coarse = torch.zeros((C,), dtype=torch.bool, device=fp.device)
-        for k in range(F):
-            in_settle = settle > 0
-            settle = torch.where(in_settle, settle - 1, settle)
-            skip = in_settle & ~corrected
-            acc = torch.where(skip[:, None, None], acc, acc + autocorr[:, k])
-            cf = torch.where(skip, cf, cf + 1)
-            fire = cf >= cfg.coarse_period
-            est_new = plsync.coarse_foffset_from_autocorr(acc)
-            coarse_est = torch.where(fire, est_new, coarse_est)
-            corrected = torch.where(
-                fire, est_new.abs() < plsync.FINE_FOFFSET_CORR_RANGE,
-                corrected)
-            acc = torch.where(fire[:, None, None], 0.0, acc)
-            cf = torch.where(fire, 0, cf)
-            new_coarse = new_coarse | fire
+            # ---- coarse accumulation with settle gating ----
+            acc = st["coarse_acc"]
+            cf = st["coarse_frames"]
+            settle = st["settle"]
+            corrected = st["coarse_corrected"]
+            coarse_est = st["coarse_foffset"]
+            autocorr = out["autocorr"].reshape(C, F, 89, 2)
+            new_coarse = torch.zeros((C,), dtype=torch.bool, device=fp.device)
+            for k in range(F):
+                in_settle = settle > 0
+                settle = torch.where(in_settle, settle - 1, settle)
+                skip = in_settle & ~corrected
+                acc = torch.where(skip[:, None, None], acc,
+                                  acc + autocorr[:, k])
+                cf = torch.where(skip, cf, cf + 1)
+                fire = cf >= cfg.coarse_period
+                est_new = plsync.coarse_foffset_from_autocorr(acc)
+                coarse_est = torch.where(fire, est_new, coarse_est)
+                corrected = torch.where(
+                    fire, est_new.abs() < plsync.FINE_FOFFSET_CORR_RANGE,
+                    corrected)
+                acc = torch.where(fire[:, None, None], 0.0, acc)
+                cf = torch.where(fire, 0, cf)
+                new_coarse = new_coarse | fire
 
-        # ---- closed-loop rotator update ----
-        fine = out["fine"].reshape(C, F)
-        cum = st["cum_foffset"]
-        rot_inc = st["rot_inc"]
-        if cfg.closed_loop:
-            can = settle <= 0
-            adj = torch.where(corrected, fine[:, -1],
-                              torch.where(new_coarse, coarse_est, 0.0))
-            adj = torch.where(can, adj, 0.0)
-            applied = adj != 0.0
-            cum = cum + adj
-            rot_inc = torch.where(applied, -cum * (2 * np.pi) / sps, rot_inc)
-            settle = torch.where(applied, self._settle0, settle)
-            wipe = applied & ~corrected
-            acc = torch.where(wipe[:, None, None], 0.0, acc)
-            cf = torch.where(wipe, 0, cf)
+            # ---- closed-loop rotator update ----
+            fine = out["fine"].reshape(C, F)
+            cum = st["cum_foffset"]
+            rot_inc = st["rot_inc"]
+            if cfg.closed_loop:
+                can = settle <= 0
+                adj = torch.where(corrected, fine[:, -1],
+                                  torch.where(new_coarse, coarse_est, 0.0))
+                adj = torch.where(can, adj, 0.0)
+                applied = adj != 0.0
+                cum = cum + adj
+                rot_inc = torch.where(applied, -cum * (2 * np.pi) / sps,
+                                      rot_inc)
+                settle = torch.where(applied, self._settle0, settle)
+                wipe = applied & ~corrected
+                acc = torch.where(wipe[:, None, None], 0.0, acc)
+                cf = torch.where(wipe, 0, cf)
 
-        new_state = dict(
-            st, sym_tail=sym_all[:, n_out:], fp=fp, coarse_acc=acc,
-            coarse_frames=cf, coarse_foffset=coarse_est,
-            coarse_corrected=corrected, cum_foffset=cum, settle=settle,
-            rot_inc=rot_inc, unlock_cnt=unlock, n0_refined=n0_refined,
-        )
-        new_state = {k: v.to(state[k].dtype) for k, v in new_state.items()}
-        stats = {
-            "metric": center,
-            "locked": locked,
-            "bch_errors": (n_corr < 0).sum(),
-            "ldpc_iters": iters,
-            "n0": out["n0"].reshape(C, F)[:, 0],
-            "snr_refined": snr_ref,
-            "coarse_foffset": new_state["coarse_foffset"],
-            "fine_foffset": fine[:, -1],
-            "coarse_corrected": new_state["coarse_corrected"],
-            "cum_foffset": new_state["cum_foffset"],
-            "fp": new_state["fp"],
-            "ts_ok": ts_ok.reshape(C, F, -1),
-            "hdr_ok": hdr_ok.reshape(C, F),
-            "sfill": new_state["sfill"],
-            "overflow": overflow,
-            "underflow": underflow,
-        }
+        with span("outputs", dev):
+            new_state = dict(
+                st, sym_tail=sym_all[:, n_out:], fp=fp, coarse_acc=acc,
+                coarse_frames=cf, coarse_foffset=coarse_est,
+                coarse_corrected=corrected, cum_foffset=cum, settle=settle,
+                rot_inc=rot_inc, unlock_cnt=unlock, n0_refined=n0_refined,
+            )
+            new_state = {k: v.to(state[k].dtype)
+                         for k, v in new_state.items()}
+            stats = {
+                "metric": center,
+                "locked": locked,
+                "bch_errors": (n_corr < 0).sum(),
+                "ldpc_iters": iters,
+                "n0": out["n0"].reshape(C, F)[:, 0],
+                "snr_refined": snr_ref,
+                "coarse_foffset": new_state["coarse_foffset"],
+                "fine_foffset": fine[:, -1],
+                "coarse_corrected": new_state["coarse_corrected"],
+                "cum_foffset": new_state["cum_foffset"],
+                "fp": new_state["fp"],
+                "ts_ok": ts_ok.reshape(C, F, -1),
+                "hdr_ok": hdr_ok.reshape(C, F),
+                "sfill": new_state["sfill"],
+                "overflow": overflow,
+                "underflow": underflow,
+            }
         return new_state, kbytes.reshape(C, F, -1), stats
 
     # ---------------- re-acquisition (device-side) ----------------
@@ -534,8 +553,10 @@ def _chain(sr, state, blocks):
         state, kb, st = sr._step(state, blocks[t], sync_free=True)
         kbs.append(kb)
         stats.append(st)
-    return (state, torch.stack(kbs),
-            {k: torch.stack([st[k] for st in stats]) for k in stats[0]})
+    # the stacking over T: the last step's outputs stage
+    with span("outputs"):
+        return (state, torch.stack(kbs),
+                {k: torch.stack([st[k] for st in stats]) for k in stats[0]})
 
 
 class _GraphChain:
@@ -548,10 +569,17 @@ class _GraphChain:
     the kernels' shared-memory attributes), since a host-to-device copy or
     a sync inside a capture is an error. The graph
     ends by copying the final state into the static state, so a call fed
-    the state the last call returned copies nothing (JAX's donation)."""
+    the state the last call returned copies nothing (JAX's donation).
+    The capture records where each stage of each step begins
+    (``utils.spans.layout``; ``layout.stages``). A call that a
+    ``torch.profiler`` profile records puts its copies into the static
+    buffers in the ``inputs`` range and records in the trace how many
+    device events they make and the layout, so its device events split
+    by stage; it launches nothing more, and the graph is the same with or
+    without a profile."""
 
     def __init__(self, sr, state, blocks):
-        dev = sr.device
+        self.device = dev = sr.device
         self.state_in = {k: v.clone() for k, v in state.items()}
         self.blocks_in = blocks.clone()
         side = torch.cuda.Stream(dev)
@@ -561,21 +589,29 @@ class _GraphChain:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph), \
+                spans.layout(dev) as self.layout:
             st, kbs, stats = _chain(sr, self.state_in, self.blocks_in)
-            for k, v in st.items():
-                if v is not self.state_in[k]:
-                    self.state_in[k].copy_(v)
+            with span("outputs"):
+                for k, v in st.items():
+                    if v is not self.state_in[k]:
+                        self.state_in[k].copy_(v)
         # kernel launches the graph holds, replayed on every call
         self.launches = {k: n - before[k]
                          for k, n in launch_counts().items()}
         self.out = (self.state_in, kbs, stats)
 
     def __call__(self, state, blocks):
-        for k, v in state.items():
-            if v is not self.state_in[k]:
-                self.state_in[k].copy_(v)
-        self.blocks_in.copy_(blocks)
+        traced = spans.profiling()
+        with span("inputs", None, traced):
+            head = 1                        # device events before the replay
+            for k, v in state.items():
+                if v is not self.state_in[k]:
+                    self.state_in[k].copy_(v)
+                    head += v.numel() > 0
+            self.blocks_in.copy_(blocks)
+            if traced:
+                self.layout.record(head)
         self.graph.replay()
         return self.out
 
@@ -599,7 +635,9 @@ class ScanStep:
     the list of shard states, blocks are split along channels, and kbytes
     and stats come back merged as ``StreamReceiver.step`` merges them.
     ``launches_per_call`` is what the graphs hold: the kernel wrappers
-    count their launches while a graph is captured, not when it replays."""
+    count their launches while a graph is captured, not when it replays.
+    Each graph's ``layout.stages`` says how many device events each stage
+    of each step puts into its replay."""
 
     def __init__(self, sr, T: int):
         self.sr, self.T = sr, T
@@ -670,8 +708,9 @@ class StreamSession:
         if len(self._blk_hist) > self._nblk:
             self._blk_hist.pop(0)
         self.state, kb, stats = sr.step(self.state, dblk)
-        flags = torch.stack([~stats["locked"], stats["underflow"],
-                             stats["overflow"]]).cpu().numpy()
+        with span("session.readback"):
+            flags = torch.stack([~stats["locked"], stats["underflow"],
+                                 stats["overflow"]]).cpu().numpy()
         self.need |= flags.any(axis=0)
         have = len(self._blk_hist) * sr.n_in      # blocks of one step each
         if self.need.any() and have >= sr._n_fe:
@@ -768,8 +807,10 @@ class StreamEngine:
                 return
             kb, ts_ok, hdr_ok = item
             try:
-                parts = self._stitch(kb.cpu().numpy(), ts_ok.cpu().numpy(),
-                                     hdr_ok.cpu().numpy())
+                with span("engine.stitch"):
+                    parts = self._stitch(kb.cpu().numpy(),
+                                         ts_ok.cpu().numpy(),
+                                         hdr_ok.cpu().numpy())
                 with self._done_lock:
                     self._done.append(parts)
             except Exception as e:      # surfaced on the feeding thread
@@ -790,13 +831,16 @@ class StreamEngine:
         """Process IQ samples; returns the recovered TS bytes (flat uint8
         array for one channel, a list of arrays for several). A final
         remainder shorter than one step is buffered, and dropped at the end
-        of the stream like the reference's in-flight tail."""
+        of the stream like the reference's in-flight tail. Host spans
+        (``utils.spans.HOST``, while spans are on): the re-blocking, the
+        session's readback, the statistics and the reader's stitch."""
         iq = np.asarray(iq, dtype=np.complex64)
         if iq.ndim == 1:
             iq = iq[None]
         if iq.shape[0] != self.n_channels:
             raise ValueError(f"expected {self.n_channels} channel rows")
-        self._buf = np.concatenate([self._buf, iq], axis=1)
+        with span("engine.reblock"):
+            self._buf = np.concatenate([self._buf, iq], axis=1)
         sr = self.sr
         ts = [[] for _ in range(self.n_channels)]
         if not self._primed and self._buf.shape[1] >= sr._n_fe:
@@ -804,10 +848,13 @@ class StreamEngine:
             self._buf = self._buf[:, sr._n_fe:]
             self._primed = True
         while self._primed and self._buf.shape[1] >= sr.n_in:
-            blk = cplx.from_np(self._buf[:, : sr.n_in]).astype(np.float32)
-            self._buf = self._buf[:, sr.n_in:]
+            with span("engine.reblock"):
+                blk = cplx.from_np(self._buf[:, : sr.n_in]).astype(
+                    np.float32)
+                self._buf = self._buf[:, sr.n_in:]
             kb, stats = self.sess.step(blk)
-            self._update_stats(stats)
+            with span("engine.stats"):
+                self._update_stats(stats)
             self._fetchq.put((kb, stats["ts_ok"], stats["hdr_ok"]))
             self._drain_done(ts)
         if flush:

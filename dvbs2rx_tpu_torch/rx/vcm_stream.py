@@ -65,6 +65,7 @@ from ..spec.fec_params import get_fec_info
 from ..spec.pls import parse_pls
 from ..spec.scramblers import bb_derandomizer_bytes, pl_descrambling_sequence
 from ..utils.runtime import device_table, resolve_device
+from ..utils.spans import span
 from .receiver import (
     _BYTE_W,
     _PLSC_DECODERS,
@@ -454,7 +455,8 @@ class VCMStreamReceiver(StreamFrontEnd):
 
     def _step_a(self, state, iq):
         """Front end, walk and its books (lane compaction, lock upkeep,
-        coarse CFO), per-PLS demap and selection, and the rotator. Returns
+        coarse CFO), per-PLS demap and selection, and the rotator, in the
+        stages of ``utils.spans.VCM_STAGES`` before ``fec``. Returns
         (state', llr (B, n_ldpc) int8, as the payload kernels write it, xf
         (B, 2 R_SUB) float32 scaled symbol snapshots, meta (B, 2) int32
         (channel, seq), sels (S, B) bool, stats); lane b = c * F_pay + f
@@ -462,120 +464,128 @@ class VCMStreamReceiver(StreamFrontEnd):
         cfg = self.cfg
         C, FP, B = self.n_channels, self.F_pay, self.B_lanes
         dev = iq.device
-        state, overflow, underflow = self._append_symbols(state, iq)
-        symbuf = state["symbuf"]
-        # the append moved every buffered symbol left by n_out
-        state = dict(state, fp_right=state["fp_right"] + self.n_out)
-        books = self._walk_books(state)
-        lanes = books["lanes"]
-        fp_right, n_walked, counts = (books["fp_right"], books["n_walked"],
-                                      books["counts"])
+        with span("frontend", dev):
+            state, overflow, underflow = self._append_symbols(state, iq)
+            symbuf = state["symbuf"]
+            # the append moved every buffered symbol left by n_out
+            state = dict(state, fp_right=state["fp_right"] + self.n_out)
+        with span("walk", dev):
+            books = self._walk_books(state)
+            lanes = books["lanes"]
+            fp_right, n_walked, counts = (books["fp_right"], books["n_walked"],
+                                          books["counts"])
 
-        # every lane's header and next header, with their decoded PLS: the
-        # data-aided and tail phases; one launch on the card (empty lanes
-        # carry zero headers and PLS 0: phase 0)
-        hk = plsync_cuda.plheader(
-            [lanes["own_hdr"], lanes["next_hdr"]],
-            [lanes["pls"].reshape(B), lanes["next_pls"].reshape(B)])
-        d_valid = lanes["valid"]                                   # (C, FP)
-        d_seq = state["seq"][:, None] + torch.arange(FP, device=dev,
-                                                     dtype=torch.int32)
+        with span("plsync", dev):
+            # every lane's header and next header, with their decoded PLS: the
+            # data-aided and tail phases; one launch on the card (empty lanes
+            # carry zero headers and PLS 0: phase 0)
+            hk = plsync_cuda.plheader(
+                [lanes["own_hdr"], lanes["next_hdr"]],
+                [lanes["pls"].reshape(B), lanes["next_pls"].reshape(B)])
+            d_valid = lanes["valid"]                               # (C, FP)
+            d_seq = state["seq"][:, None] + torch.arange(FP, device=dev,
+                                                         dtype=torch.int32)
 
-        # ---- lanes: payloads read in place from the ring (max window) ----
-        sym = symbuf[:, None].expand((C, FP) + symbuf.shape[1:])
-        start_l = (lanes["pos"] + 90).reshape(B)
-        ph_l = hk["phase"].reshape(B, 2, 2)
-        pls_l = lanes["pls"].reshape(B)
-        valid_l = d_valid.reshape(B)
-        corrected_l = state["coarse_corrected"].repeat_interleave(FP)
+            # ---- lanes: payloads read in place from the ring (max
+            # window) ----
+            sym = symbuf[:, None].expand((C, FP) + symbuf.shape[1:])
+            start_l = (lanes["pos"] + 90).reshape(B)
+            ph_l = hk["phase"].reshape(B, 2, 2)
+            pls_l = lanes["pls"].reshape(B)
+            valid_l = d_valid.reshape(B)
+            corrected_l = state["coarse_corrected"].repeat_interleave(FP)
 
-        # ---- per-expected-PLS demap (static geometry) of the lanes that
-        # decoded to it: each lane once, written in place ----
-        llr8 = torch.zeros((B, self.n_ldpc), dtype=torch.int8, device=dev)
-        xf = torch.zeros((B, self.R_SUB * 2), device=dev)
-        fine = torch.zeros((B,), device=dev)
-        n0 = torch.zeros((B,), device=dev)
-        sels = []
-        for si in range(self.S):
-            n0_ov = state["n0_refined"][:, si].repeat_interleave(FP)
-            sel = valid_l & (pls_l == self.pls_set[si])
-            sels.append(sel)
-            self._demap_lanes(si, sym, start_l, ph_l, corrected_l, n0_ov, sel,
-                              llr8, xf, fine, n0)
-        meta = torch.stack([
-            torch.arange(C, device=dev, dtype=torch.int32).repeat_interleave(
-                FP),
-            d_seq.reshape(B),
-        ], dim=1)
-        sels = torch.stack(sels)                                   # (S, B)
+            # ---- per-expected-PLS demap (static geometry) of the lanes that
+            # decoded to it: each lane once, written in place ----
+            llr8 = torch.zeros((B, self.n_ldpc), dtype=torch.int8, device=dev)
+            xf = torch.zeros((B, self.R_SUB * 2), device=dev)
+            fine = torch.zeros((B,), device=dev)
+            n0 = torch.zeros((B,), device=dev)
+            sels = []
+            for si in range(self.S):
+                n0_ov = state["n0_refined"][:, si].repeat_interleave(FP)
+                sel = valid_l & (pls_l == self.pls_set[si])
+                sels.append(sel)
+                self._demap_lanes(si, sym, start_l, ph_l, corrected_l,
+                                  n0_ov, sel, llr8, xf, fine, n0)
+            meta = torch.stack([
+                torch.arange(C, device=dev,
+                             dtype=torch.int32).repeat_interleave(FP),
+                d_seq.reshape(B),
+            ], dim=1)
+            sels = torch.stack(sels)                                   # (S, B)
 
-        # ---- lock and coarse CFO: the books' recurrences ----
-        locked = books["unlock_cnt"] < cfg.unlock_thresh
-        acc = books["coarse_acc"]
-        cf = books["coarse_frames"]
-        settle = books["settle"]
-        corrected = books["coarse_corrected"]
-        coarse_est = books["coarse_foffset"]
-        new_coarse = books["new_coarse"]
+        with span("tracking", dev):
+            # ---- lock and coarse CFO: the books' recurrences ----
+            locked = books["unlock_cnt"] < cfg.unlock_thresh
+            acc = books["coarse_acc"]
+            cf = books["coarse_frames"]
+            settle = books["settle"]
+            corrected = books["coarse_corrected"]
+            coarse_est = books["coarse_foffset"]
+            new_coarse = books["new_coarse"]
 
-        # ---- closed-loop rotator update (block granular) ----
-        fine_cf = fine.reshape(C, FP)
-        fine_last = torch.zeros((C,), dtype=torch.float32, device=dev)
-        for j in range(FP):
-            fine_last = torch.where(d_valid[:, j], fine_cf[:, j], fine_last)
-        have_fine = d_valid.any(dim=1)
-        # a fired coarse estimate above the re-application floor takes
-        # precedence even when corrected (see _coarse_reapply_min)
-        coarse_due = new_coarse & (coarse_est.abs() > self._coarse_reapply_min)
-        fine_ok = have_fine & (fine_last.abs() < self._coarse_reapply_min)
-        adj = torch.where(coarse_due, coarse_est,
-                          torch.where(corrected & fine_ok, fine_last, 0.0))
-        adj = torch.where(settle <= 0, adj, 0.0)
-        applied = adj != 0.0
-        cum = state["cum_foffset"] + adj
-        rot_inc = torch.where(applied, -cum * (2 * np.pi) / cfg.sps,
-                              state["rot_inc"])
-        settle = torch.where(applied, self._settle0, settle)
-        wipe = applied & ~corrected
-        acc = torch.where(wipe[:, None, None], 0.0, acc)
-        cf = torch.where(wipe, 0, cf)
+            # ---- closed-loop rotator update (block granular) ----
+            fine_cf = fine.reshape(C, FP)
+            fine_last = torch.zeros((C,), dtype=torch.float32, device=dev)
+            for j in range(FP):
+                fine_last = torch.where(d_valid[:, j], fine_cf[:, j],
+                                        fine_last)
+            have_fine = d_valid.any(dim=1)
+            # a fired coarse estimate above the re-application floor takes
+            # precedence even when corrected (see _coarse_reapply_min)
+            coarse_due = new_coarse & (
+                coarse_est.abs() > self._coarse_reapply_min)
+            fine_ok = have_fine & (fine_last.abs() < self._coarse_reapply_min)
+            adj = torch.where(coarse_due, coarse_est,
+                              torch.where(corrected & fine_ok, fine_last, 0.0))
+            adj = torch.where(settle <= 0, adj, 0.0)
+            applied = adj != 0.0
+            cum = state["cum_foffset"] + adj
+            rot_inc = torch.where(applied, -cum * (2 * np.pi) / cfg.sps,
+                                  state["rot_inc"])
+            settle = torch.where(applied, self._settle0, settle)
+            wipe = applied & ~corrected
+            acc = torch.where(wipe[:, None, None], 0.0, acc)
+            cf = torch.where(wipe, 0, cf)
 
-        new_state = dict(
-            state,
-            fp_right=fp_right.clamp(max=self.N_SYM),
-            pls=books["pls"],
-            seq=state["seq"] + counts,
-            coarse_acc=acc,
-            coarse_frames=cf,
-            coarse_foffset=coarse_est,
-            coarse_corrected=corrected,
-            cum_foffset=cum,
-            settle=settle,
-            rot_inc=rot_inc,
-            unlock_cnt=books["unlock_cnt"],
-        )
-        new_state = {k: v.to(state[k].dtype) for k, v in new_state.items()}
-        walked_metric = books["metric_sum"]
-        stats = {
-            "locked": locked,
-            # frame start fell off the symbol ring: flag for re-acquisition
-            "sym_lost": fp_right > self.N_SYM - 94,
-            "metric": torch.where(n_walked > 0,
-                                  walked_metric / n_walked.clamp(min=1), 0.0),
-            "n_walked": n_walked,
-            "frames": counts.sum(dtype=torch.int32),
-            "dummies": books["dummies"].sum(dtype=torch.int32),
-            "rejected": books["rejected"].sum(dtype=torch.int32),
-            "coarse_foffset": coarse_est,
-            "coarse_corrected": corrected,
-            "cum_foffset": cum,
-            "fine_foffset": fine_last,
-            "n0": n0.reshape(C, FP)[:, 0],
-            "seq": new_state["seq"],
-            "fp_right": fp_right.to(torch.int32),
-            "overflow": overflow,
-            "underflow": underflow,
-        }
+        with span("outputs", dev):
+            new_state = dict(
+                state,
+                fp_right=fp_right.clamp(max=self.N_SYM),
+                pls=books["pls"],
+                seq=state["seq"] + counts,
+                coarse_acc=acc,
+                coarse_frames=cf,
+                coarse_foffset=coarse_est,
+                coarse_corrected=corrected,
+                cum_foffset=cum,
+                settle=settle,
+                rot_inc=rot_inc,
+                unlock_cnt=books["unlock_cnt"],
+            )
+            new_state = {k: v.to(state[k].dtype) for k, v in new_state.items()}
+            walked_metric = books["metric_sum"]
+            stats = {
+                "locked": locked,
+                # frame start fell off the symbol ring: flag for re-acquisition
+                "sym_lost": fp_right > self.N_SYM - 94,
+                "metric": torch.where(
+                    n_walked > 0, walked_metric / n_walked.clamp(min=1), 0.0),
+                "n_walked": n_walked,
+                "frames": counts.sum(dtype=torch.int32),
+                "dummies": books["dummies"].sum(dtype=torch.int32),
+                "rejected": books["rejected"].sum(dtype=torch.int32),
+                "coarse_foffset": coarse_est,
+                "coarse_corrected": corrected,
+                "cum_foffset": cum,
+                "fine_foffset": fine_last,
+                "n0": n0.reshape(C, FP)[:, 0],
+                "seq": new_state["seq"],
+                "fp_right": fp_right.to(torch.int32),
+                "overflow": overflow,
+                "underflow": underflow,
+            }
         return new_state, llr8, xf, meta, sels, stats
 
     def _append(self, state, si, llr8, xf8, meta, sel):
@@ -662,49 +672,53 @@ class VCMStreamReceiver(StreamFrontEnd):
 
     def _step_b(self, st, llr, xf, meta, sels):
         """Every PLS's queue append, pooled drain of full batches and
-        refined-N0 update."""
-        B_fec = self.B_fec
-        xf8 = self.quantize_snapshots(xf)
-        queues = [self._append(st, si, llr, xf8, meta, sels[si])
-                  for si in range(self.S)]
-        # the one readback of the step: how many full batches each queue has
-        fills = torch.stack([q[3] for q in queues]).cpu().numpy()
-        outputs = {"kb": [], "meta": [], "n_corr": [], "fired": []}
-        iters, n0cols, new_q = [], [], []
-        for si, (ql, qx, qm, fill) in enumerate(queues):
-            n_fire = min(self.DRAIN, int(fills[si]) // B_fec)
-            n0col = st["n0_refined"][:, si]
-            kb, md, nc, it = [], [], [], []
-            for d in range(n_fire):
-                rows = slice(d * B_fec, (d + 1) * B_fec)
-                k_d, nc_d, it_d, snr = self._fec(si, ql[rows], qx[rows])
-                n0col = self._refine_n0(n0col, qm[rows, 0], snr)
-                kb.append(k_d)
-                md.append(qm[rows])
-                nc.append(nc_d)
-                it.append(it_d)
-            taken = n_fire * B_fec
-            if taken:
-                ql, qx, qm = (torch.cat([q[taken:], torch.zeros_like(
-                    q[:taken])]) for q in (ql, qx, qm))
-            new_q.append((ql, qx, qm, fill - taken))
-            outputs["kb"].append(self._slots(kb, (B_fec, self.kb_max),
-                                             torch.uint8))
-            outputs["meta"].append(self._slots(md, (B_fec, 2), torch.int32))
-            outputs["n_corr"].append(self._slots(nc, (B_fec,), torch.int32))
-            outputs["fired"].append(np.arange(self.DRAIN) < n_fire)
-            iters.append(torch.stack(it).max() if it else torch.zeros(
-                (), dtype=torch.int32, device=self.device))
-            n0cols.append(n0col)
-        ql, qx, qm, fill = zip(*new_q)
-        st = dict(
-            st, qllr=torch.stack(ql), qxf=torch.stack(qx),
-            qmeta=torch.stack(qm),
-            qfill=torch.stack(fill).to(torch.int32),
-            n0_refined=torch.stack(n0cols, dim=1),
-        )
-        return st, outputs, {"ldpc_iters": iters,
-                             "n0_refined": st["n0_refined"]}
+        refined-N0 update: the step's ``fec`` stage."""
+        with span("fec", self.device):
+            B_fec = self.B_fec
+            xf8 = self.quantize_snapshots(xf)
+            queues = [self._append(st, si, llr, xf8, meta, sels[si])
+                      for si in range(self.S)]
+            # the one readback of the step: how many full batches each
+            # queue has
+            fills = torch.stack([q[3] for q in queues]).cpu().numpy()
+            outputs = {"kb": [], "meta": [], "n_corr": [], "fired": []}
+            iters, n0cols, new_q = [], [], []
+            for si, (ql, qx, qm, fill) in enumerate(queues):
+                n_fire = min(self.DRAIN, int(fills[si]) // B_fec)
+                n0col = st["n0_refined"][:, si]
+                kb, md, nc, it = [], [], [], []
+                for d in range(n_fire):
+                    rows = slice(d * B_fec, (d + 1) * B_fec)
+                    k_d, nc_d, it_d, snr = self._fec(si, ql[rows], qx[rows])
+                    n0col = self._refine_n0(n0col, qm[rows, 0], snr)
+                    kb.append(k_d)
+                    md.append(qm[rows])
+                    nc.append(nc_d)
+                    it.append(it_d)
+                taken = n_fire * B_fec
+                if taken:
+                    ql, qx, qm = (torch.cat([q[taken:], torch.zeros_like(
+                        q[:taken])]) for q in (ql, qx, qm))
+                new_q.append((ql, qx, qm, fill - taken))
+                outputs["kb"].append(self._slots(kb, (B_fec, self.kb_max),
+                                                 torch.uint8))
+                outputs["meta"].append(self._slots(md, (B_fec, 2),
+                                                   torch.int32))
+                outputs["n_corr"].append(self._slots(nc, (B_fec,),
+                                                     torch.int32))
+                outputs["fired"].append(np.arange(self.DRAIN) < n_fire)
+                iters.append(torch.stack(it).max() if it else torch.zeros(
+                    (), dtype=torch.int32, device=self.device))
+                n0cols.append(n0col)
+            ql, qx, qm, fill = zip(*new_q)
+            st = dict(
+                st, qllr=torch.stack(ql), qxf=torch.stack(qx),
+                qmeta=torch.stack(qm),
+                qfill=torch.stack(fill).to(torch.int32),
+                n0_refined=torch.stack(n0cols, dim=1),
+            )
+            return st, outputs, {"ldpc_iters": iters,
+                                 "n0_refined": st["n0_refined"]}
 
     # ---------------- flush ----------------
 
@@ -1008,13 +1022,15 @@ class VCMStreamEngine:
 
     def receive(self, iq: np.ndarray, flush: bool = True):
         """Process IQ samples; returns TS bytes (a flat array for one
-        channel, a list of arrays for several)."""
+        channel, a list of arrays for several). Host spans as
+        ``StreamEngine.receive``'s, the stitch on this thread."""
         iq = np.asarray(iq, dtype=np.complex64)
         if iq.ndim == 1:
             iq = iq[None]
         if iq.shape[0] != self.n_channels:
             raise ValueError(f"expected {self.n_channels} channel rows")
-        self._buf = np.concatenate([self._buf, iq], axis=1)
+        with span("engine.reblock"):
+            self._buf = np.concatenate([self._buf, iq], axis=1)
         sr = self.sr
         ts = [[] for _ in range(self.n_channels)]
 
@@ -1025,20 +1041,24 @@ class VCMStreamEngine:
             self._primed = True
 
         while self._primed and self._buf.shape[1] >= sr.n_in:
-            blk = sr.put_iq(
-                cplx.from_np(self._buf[:, : sr.n_in]).astype(np.float32))
-            self._buf = self._buf[:, sr.n_in:]
+            with span("engine.reblock"):
+                blk = sr.put_iq(
+                    cplx.from_np(self._buf[:, : sr.n_in]).astype(np.float32))
+                self._buf = self._buf[:, sr.n_in:]
             self._blk_hist.append(blk)
             if len(self._blk_hist) > self._nblk:
                 self._blk_hist.pop(0)
             self.state, outputs, stats = sr.step(self.state, blk)
-            self._update_stats(stats)
-            self._ingest(outputs)
-            for c, parts in enumerate(self._deliver()):
-                ts[c].extend(parts)
-            flags = torch.stack([~stats["locked"], stats["underflow"],
-                                 stats["overflow"], stats["sym_lost"]])
-            self.need |= flags.cpu().numpy().any(axis=0)
+            with span("engine.stats"):
+                self._update_stats(stats)
+            with span("engine.stitch"):
+                self._ingest(outputs)
+                for c, parts in enumerate(self._deliver()):
+                    ts[c].extend(parts)
+            with span("session.readback"):
+                flags = torch.stack([~stats["locked"], stats["underflow"],
+                                     stats["overflow"], stats["sym_lost"]])
+                self.need |= flags.cpu().numpy().any(axis=0)
             have = sum(b.shape[1] for b in self._blk_hist)
             if self.need.any() and have >= sr._n_fe:
                 tail = torch.cat(self._blk_hist, dim=1)[:, -sr._n_fe:]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the port's bare stream step on one GPU.
 
-    python3 tools/torch_profile_step.py [--steps 3] [--path ccm|vcm]
-    python3 tools/torch_profile_step.py --path ccm|vcm --by-module [--root DIR]
+    python3 tools/torch_profile_step.py [--steps 3] [--path ccm|vcm] \
+        [--root DIR]
     python3 tools/torch_profile_step.py --path ccm --scan 8
     python3 tools/torch_profile_step.py --path host-ccm|host-acm
     python3 tools/torch_profile_step.py --path host-gardner|host-resample
@@ -17,27 +17,24 @@ synchronise) and ``--steps`` more under ``torch.profiler``. Prints the
 bare step's wall time, the device busy time per step (the sum of the
 kernels' device times; one stream, so they do not overlap), the idle
 share of the bare step, the kernel launches per step, and the kernels by
-device time with their share (kernel events only). With ``--engine``, it
-then feeds the same stimulus through the path's engine (``StreamEngine``
-or ``VCMStreamEngine``) one step per ``receive`` call under ``cProfile``
-and prints the engine's wall time per step and the host functions by
-their own time.
-
-``--by-module`` breaks the profiled steps' device time down by module:
-the tool (not the program) wraps the step's methods and the module
-functions it calls in ``torch.profiler.record_function`` ranges
-(``MODULES_CCM`` / ``MODULES_VCM``; a name the checkout lacks is
-skipped), and each kernel's device time goes to the innermost range
-around the operator that launched it, or to "step bookkeeping" when no
-range holds it (the step's own loops and merges). Prints device ms and
-launches per step per module, the launching operator and kernel behind
-each module's launches (all but the bookkeeping's), and one JSON line.
+device time with their share (kernel events only; the stage markers
+apart). The profiled steps run with the program's stage spans on
+(``dvbs2rx_tpu_torch/utils/spans.py``): the tool then splits their device
+time by stage, each device event going to the stage of the last marker
+before it on the stream, and prints device ms, device events and host ms
+(the ``rx.<stage>`` range) per step for each stage, and one JSON line.
+With ``--engine``, it then feeds the same stimulus through the path's
+engine (``StreamEngine`` or ``VCMStreamEngine``) one step per ``receive``
+call, once under ``torch.profiler`` with spans on (host ms per step of
+each of the engine's host spans) and once under ``cProfile`` (the
+engine's wall time per step and the host functions by their own time).
 ``--root DIR`` imports the package and ``chip_smoke`` from another
 checkout (e.g. the parent unpacked under ``build/``), so two revisions
-are profiled by one tool.
+are profiled by one tool; a checkout without spans prints no split.
 ``--scan T`` (``ccm``) also replays ``make_scan_step(T)`` from the primed
-state (one capture, then one replay under ``torch.profiler``) and prints
-the replay's device busy time and kernel events per step.
+state (the capture, then one call under ``torch.profiler``) and prints
+the replay's device busy time, kernel events and stage split per step,
+each event placed in its stage by the layout the capture recorded.
 
 ``host-ccm`` and ``host-acm`` profile a host receiver instead: chip_smoke
 phase 7's (a) ``Receiver`` or (b) blind ``ACMReceiver`` run, whole (every
@@ -52,6 +49,8 @@ front-end block. Needs one CUDA card.
 """
 
 import argparse
+import json
+import re
 import sys
 import time
 import types
@@ -60,49 +59,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-
-# --by-module: (where, attribute, range name). "where" is "sr" (the
-# receiver), "sr.sync", "sr.fec" or a module of the package; a kernel's
-# time goes to the innermost range around the operator that launched it
-MODULES_CCM = (
-    ("sr", "_frontend", "front-end glue"),
-    ("sr.sync", "step_batched", "O&M timing"),
-    ("sr", "_windows", "windows"),
-    ("sr", "_lane", "lane program (PL sync + demap)"),
-    ("dvbs2rx_tpu_torch.rx.stream", "quantize_llrs", "quantize"),
-    ("sr.fec", "lane_major", "FEC (LDPC + BCH)"),
-    ("dvbs2rx_tpu_torch.rx.stream", "packet_validity", "CRC-8"),
-    ("dvbs2rx_tpu_torch.rx.stream", "_snr_refine_frames", "SNR refinement"),
-    ("sr", "_slip_metric", "slip metric"),
-)
-MODULES_VCM = (
-    ("sr", "_append_symbols", "front-end glue"),
-    ("sr.sync", "step_batched", "O&M timing"),
-    ("sr", "_walk", "VCM walk"),
-    ("sr", "_walk_books", "VCM walk"),
-    ("dvbs2rx_tpu_torch.ops.plsync", "plheader_phase", "header phases"),
-    ("dvbs2rx_tpu_torch.ops.plsync", "coarse_autocorr", "coarse autocorr"),
-    ("dvbs2rx_tpu_torch.ops.plsync_cuda", "plheader", "PLHEADER kernel"),
-    ("sr", "_demap_lanes", "lane program (PL sync + demap)"),
-    ("sr", "_step_b", "queues + FEC"),
-    ("sr", "_fec", "FEC decode (LDPC + BCH)"),
-)
-BOOKKEEPING = "step bookkeeping"
-# The hand-written kernels are launched through ctypes with nvcc's static
-# CUDA runtime, whose launches the profiler does not tie to the operator
-# around them: their device time goes to a module by kernel name instead.
-KERNEL_MODULES = {
-    "ccm": (("mf_segmented", "O&M timing"), ("ffsync_track", "O&M timing"),
-            ("frontend_", "front-end glue"), ("ldpc", "FEC (LDPC + BCH)"),
-            ("bch_", "FEC (LDPC + BCH)"), ("crc8", "CRC-8"),
-            ("plsync_", "lane program (PL sync + demap)")),
-    "vcm": (("mf_segmented", "O&M timing"), ("ffsync_track", "O&M timing"),
-            ("frontend_", "front-end glue"), ("vcm_walk", "VCM walk"),
-            ("ldpc", "FEC decode (LDPC + BCH)"),
-            ("bch_", "FEC decode (LDPC + BCH)"),
-            ("plsync_header", "PLHEADER kernel"),
-            ("plsync_", "lane program (PL sync + demap)")),
-}
+MARKER = re.compile(r"rxspan_(\w+?)_kernel")
+BEFORE = "(before the first marker)"
 
 
 def main():
@@ -112,7 +70,6 @@ def main():
                                        "host-gardner", "host-resample"),
                     default="ccm")
     ap.add_argument("--engine", action="store_true")
-    ap.add_argument("--by-module", action="store_true")
     ap.add_argument("--root", default=str(ROOT))
     ap.add_argument("--scan", type=int, default=0)
     args = ap.parse_args()
@@ -167,11 +124,8 @@ def main():
         state, _, _ = sr.step(state, blocks[t])
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / args.steps
-    if args.by_module:
-        _install_ranges(sr, MODULES_CCM if args.path == "ccm"
-                        else MODULES_VCM)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _spans_on(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
         for t in range(2 + args.steps, n_steps):
             state, _, st = sr.step(state, blocks[t])
         torch.cuda.synchronize()
@@ -191,28 +145,26 @@ def main():
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:15]:
         print(f"  {us / 1e3:9.3f} ms {us / busy:6.1%} {n:6d} launches  "
               f"{key[:90]}")
-    if args.by_module:
-        _print_by_module(args.path, prof, args.steps, busy_ms)
+    _print_spans(args.path, prof, args.steps)
     if args.engine:
         _engine_profile(args, cfg, iq, sr, n_steps)
 
 
 def _scan_profile(sr, primed, blocks):
     """One make_scan_step(T) replay from the primed state under
-    torch.profiler: device busy time and kernel events per step."""
-    import json
-
+    torch.profiler: device busy time, kernel events and the stage split
+    per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     T = len(blocks)
     scan = sr.make_scan_step(T)
     stacked = torch.stack(blocks)
-    scan(primed, stacked)                   # capture, then a replay
-    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    state = scan(primed, stacked)[0]        # the capture, then a replay
     for _ in range(5):      # a capture now and then records no kernel event
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            scan(primed, stacked)
+        with profile(activities=activities) as prof:
+            scan(state, stacked)
             torch.cuda.synchronize()
         rows = _kernel_rows(prof)
         if rows:
@@ -223,104 +175,105 @@ def _scan_profile(sr, primed, blocks):
     events = sum(r[2] for r in rows) / T
     print(f"ccm scan replay (make_scan_step({T})): device busy {busy:.3f} "
           f"ms/step, {events:.1f} kernel events per step")
+    layout = getattr(scan._graphs[0], "layout", None)
+    split = _print_spans(f"ccm scan T={T}", prof, T,
+                         layout.stages if layout else None)
     print(json.dumps({"scan": {"T": T, "busy_ms_per_step": busy,
-                               "events_per_step": events}}))
+                               "events_per_step": events,
+                               "stages": split}}))
 
 
-def _install_ranges(sr, modules):
-    """Wrap each (where, attribute) that exists in a record_function range
-    of its name: an instance attribute on the receiver's objects, a module
-    attribute on a module (looked up at call time by its callers)."""
-    import functools
-    import importlib
+def _spans_on():
+    """The program's stage spans on (a checkout without them: nothing)."""
+    import contextlib
 
-    import torch
-
-    def wrap(fn, name):
-        @functools.wraps(fn)
-        def ranged(*a, **k):
-            with torch.profiler.record_function(name):
-                return fn(*a, **k)
-        return ranged
-
-    for where, attr, name in modules:
-        if where.startswith("sr"):
-            obj = sr
-            for part in where.split(".")[1:]:
-                obj = getattr(obj, part)
-        else:
-            try:
-                obj = importlib.import_module(where)
-            except ImportError:
-                continue
-        if hasattr(obj, attr):
-            setattr(obj, attr, wrap(getattr(obj, attr), name))
-
-
-def _print_by_module(path, prof, steps, busy_ms):
-    """Device time and launches per step of each range (innermost range
-    around the launching operator), the rest as step bookkeeping; the
-    kernels the profiler ties to no operator by name (KERNEL_MODULES)."""
-    import json
-
-    from torch.autograd import DeviceType
-
-    names = {n for _, _, n in (MODULES_CCM + MODULES_VCM)}
-    ms, launches, kinds = {}, {}, {}
-
-    def add(owner, us, n, kind):
-        ms[owner] = ms.get(owner, 0.0) + us / 1e3 / steps
-        launches[owner] = launches.get(owner, 0) + n / steps
-        per = kinds.setdefault(owner, {})
-        per[kind] = per.get(kind, 0) + n
-
-    tied = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CPU or not ev.kernels:
-            continue
-        owner, up = BOOKKEEPING, ev
-        while up is not None:
-            if up.name in names:
-                owner = up.name
-                break
-            up = up.cpu_parent
-        for k in ev.kernels:
-            add(owner, k.duration, 1, f"{ev.name} -> {k.name[:60]}")
-            tied[k.name] = tied.get(k.name, 0) + 1
-    for key, us, n in _kernel_rows(prof):
-        left = n - tied.get(key, 0)
-        if left <= 0:
-            continue
-        owner = next((m for pre, m in KERNEL_MODULES[path] if pre in key),
-                     "untied kernels")
-        add(owner, us * left / n, left, f"(by name) {key[:60]}")
-    total = sum(ms.values())
-    print(f"{path} by module: device ms and kernel launches per step "
-          f"(attributed {total:.3f} of {busy_ms:.3f} busy ms)")
-    for name in sorted(ms, key=lambda n: -ms[n]):
-        print(f"  {ms[name]:9.3f} ms {ms[name] / total:6.1%} "
-              f"{launches[name]:7.1f} launches  {name}")
-        if name != BOOKKEEPING:
-            # the operators and kernels behind each module's launches
-            for kind, n in sorted(kinds[name].items(), key=lambda x: -x[1]):
-                print(f"      {n / steps:7.2f} per step  {kind}")
-    print(json.dumps({"by_module": {
-        "path": path, "busy_ms": busy_ms, "attributed_ms": total,
-        "modules": {n: {"ms": ms[n], "launches": launches[n],
-                        "kernels": kinds[n]} for n in ms}}}))
+    try:
+        from dvbs2rx_tpu_torch.utils import spans
+    except ImportError:
+        return contextlib.nullcontext()
+    return spans.switch(True)
 
 
 def _kernel_rows(prof):
-    """(name, device us, launches) of the kernel events: an operator's row
-    repeats the time of its kernels, and a --by-module range's device-side
-    annotation the time of the kernels inside it."""
+    """(name, device us, launches) of the kernel events, the stage markers
+    and the spans' device-side annotations (``rx.<stage>``) apart: an
+    operator's row repeats the time of its kernels, an annotation the time
+    of the kernels inside it."""
     from torch.autograd import DeviceType
 
-    ranges = {n for _, _, n in (MODULES_CCM + MODULES_VCM)}
     return [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0 and e.key not in ranges]
+            and e.self_device_time_total > 0
+            and not MARKER.search(e.key) and not e.key.startswith("rx.")]
+
+
+def _span_split(prof, stages=None):
+    """{stage: [device us, device events, host us]} of a profile: each
+    device event (kernel, copy, fill) goes to the stage of the last
+    marker before it on the stream, events before the first marker to
+    BEFORE; with ``stages`` (a scan graph's ``layout.stages``, one
+    profiled call) the replay's events are placed by the layout instead
+    (``spans.place``), the copies before them in ``inputs``. Host us is
+    the time inside the ``rx.<stage>`` ranges. Empty without markers, or
+    where the call does not fit the layout."""
+    from torch.autograd import DeviceType
+
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("rx.")),
+                 key=lambda e: e.time_range.start)
+    out, stage = {}, BEFORE
+    if stages is not None:
+        from dvbs2rx_tpu_torch.utils import spans
+
+        kinds = [1 if e.name.startswith("Memcpy") else
+                 2 if e.name.startswith("Memset") else 0 for e in dev]
+        placed = spans.place(kinds, stages)
+        if placed is None:
+            print(f"the profiled call's {len(dev)} device events do not fit "
+                  f"the scan's layout")
+            return {}
+        placed = [p or "inputs" for p in placed]
+    for k, e in enumerate(dev):
+        m = MARKER.search(e.name)
+        if m and stages is None:
+            stage = m.group(1)
+            out.setdefault(stage, [0.0, 0, 0.0])
+            continue
+        if stages is not None:
+            stage = placed[k]
+        row = out.setdefault(stage, [0.0, 0, 0.0])
+        row[0] += e.time_range.elapsed_us()
+        row[1] += 1
+    if len(out) <= 1:
+        return {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("rx.") \
+                and e.name[3:] in out:
+            out[e.name[3:]][2] += e.time_range.elapsed_us()
+    return out
+
+
+def _print_spans(label, prof, steps, stages=None):
+    """The stage split per step; returns it as {stage: {device_ms,
+    events, host_ms}}."""
+    split = _span_split(prof, stages)
+    if not split:
+        print(f"{label}: no stage split (a program without spans)")
+        return {}
+    dev_ms = sum(r[0] for r in split.values()) / 1e3 / steps
+    print(f"{label} by stage span (per step; device {dev_ms:.3f} ms, the "
+          f"markers' own time apart):")
+    out = {}
+    for stage, (us, n, host) in split.items():
+        out[stage] = {"device_ms": us / 1e3 / steps, "events": n / steps,
+                      "host_ms": host / 1e3 / steps}
+        print(f"  {us / 1e3 / steps:9.4f} ms device {n / steps:8.1f} "
+              f"events {host / 1e3 / steps:9.4f} ms host  {stage}")
+    print(json.dumps({"stages": {"path": label, "steps": steps,
+                                 "split": out}}))
+    return out
 
 
 def _host_profile(path):
@@ -407,11 +360,14 @@ def _host_profile(path):
 
 
 def _engine_profile(args, cfg, iq, sr, n_steps):
-    """The engine's receive, one step per call, under cProfile."""
+    """The engine's receive, one step per call: half the steps under
+    torch.profiler with spans on (the host spans), half under cProfile."""
     import cProfile
     import pstats
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from dvbs2rx_tpu_torch.rx.stream import StreamEngine
     from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamEngine
 
@@ -422,15 +378,31 @@ def _engine_profile(args, cfg, iq, sr, n_steps):
     eng.receive(iq[:, sr._n_fe + sr.n_in: sr._n_fe + 2 * sr.n_in],
                 flush=False)
     torch.cuda.synchronize()
+
+    def feed(ts):
+        for t in ts:
+            a = sr._n_fe + t * sr.n_in
+            eng.receive(iq[:, a: a + sr.n_in], flush=False)
+        torch.cuda.synchronize()
+
+    half = (n_steps - 2) // 2
+    with _spans_on(), profile(activities=[ProfilerActivity.CPU],
+                              **_all_threads()) as tprof:
+        feed(range(2, 2 + half))
+    host = {}
+    for e in tprof.events():
+        if e.name.startswith("rx."):
+            host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us()
+    print(f"{args.path} engine host spans (ms per receive step, {half} "
+          f"steps): " + (", ".join(f"{k} {v / 1e3 / half:.3f}"
+                                   for k, v in sorted(host.items()))
+                         or "none (a program without spans)"))
     prof = cProfile.Profile()
     t0 = time.perf_counter()
     prof.enable()
-    for t in range(2, n_steps):
-        a = sr._n_fe + t * sr.n_in
-        eng.receive(iq[:, a: a + sr.n_in], flush=False)
-    torch.cuda.synchronize()
+    feed(range(2 + half, n_steps))
     prof.disable()
-    steps = n_steps - 2
+    steps = n_steps - 2 - half
     print(f"{args.path} engine: {(time.perf_counter() - t0) / steps * 1e3:.2f}"
           f" ms per receive step under cProfile ({steps} steps); host "
           f"functions by own time per step:")
@@ -442,6 +414,15 @@ def _engine_profile(args, cfg, iq, sr, n_steps):
               f"{name}")
     if hasattr(eng, "close"):
         eng.close()
+
+
+def _all_threads():
+    """torch.profiler's option to record every thread's ranges (the
+    engine's reader thread)."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    return {"experimental_config":
+            _ExperimentalConfig(profile_all_threads=True)}
 
 
 if __name__ == "__main__":
