@@ -60,6 +60,7 @@ _SIGNATURES = {
     "ffsync_piece_samples": [],
     "ffsync_track_plan": [_I],
     "ffsync_track_smem_bytes": [_I] * 2,
+    "snr_refine_launch": [_P] * 8 + [_L] * 3 + [_I] * 6 + [_P],
     "rxspan_launch": [_I, _P],
     "rxspan_graph_nodes": [_P, _P],
 }

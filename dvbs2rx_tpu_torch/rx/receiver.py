@@ -57,7 +57,7 @@ from ..spec.scramblers import (
     pl_descrambling_sequence,
 )
 
-from ..ops import cplx, plsync
+from ..ops import cplx, plsync, snr_cuda
 from ..ops.bch import BCHDecoder
 from ..ops.crc8_dev import packet_validity
 from ..ops.demap import demap, estimate_snr_generic, estimate_snr_qpsk
@@ -210,7 +210,17 @@ def _snr_refine_frames(xfec, hard_bits, constellation, rate, n_mod):
     """Per-frame refined linear SNR from decoded bits (reference
     ``xfecframe_demapper_cb_impl.cc:188-318``): re-map the decoded codeword
     to constellation points and measure the error against the XFECFRAME
-    symbols. xfec (B, R, 2) with R <= rows; hard_bits (B, n_ldpc)."""
+    symbols. xfec (B, R, 2) with R <= rows; hard_bits (B, n_ldpc). CUDA
+    tensors take one launch of ``ops.snr_cuda``, CPU tensors the plain
+    version ``_snr_refine_plain``."""
+    if xfec.is_cuda:
+        return snr_cuda.snr_refine(xfec, hard_bits, constellation, rate,
+                                   n_mod)[0]
+    return _snr_refine_plain(xfec, hard_bits, constellation, rate, n_mod)
+
+
+def _snr_refine_plain(xfec, hard_bits, constellation, rate, n_mod):
+    """``_snr_refine_frames`` in PyTorch operators, on any device."""
     order = column_order(constellation, rate)
     bits = hard_bits.to(torch.int64)
     B = bits.shape[0]
@@ -228,6 +238,17 @@ def _snr_refine_frames(xfec, hard_bits, constellation, rate, n_mod):
     sp = (ref * ref).sum(-1).sum(-1)
     np_ = ((xfec - ref) ** 2).sum(-1).sum(-1)
     return sp / np_.clamp(min=1e-12)
+
+
+def _snr_refine_n0(xfec, hard_bits, constellation, rate, n_mod, n0):
+    """``_snr_refine_frames`` and the refined N0 carry from it: (snr (B,),
+    n0' (B,)), n0' = 1 / max(snr, 1e-9) where snr > 0, else the carried
+    n0. One launch of ``ops.snr_cuda`` on CUDA tensors."""
+    if xfec.is_cuda:
+        return snr_cuda.snr_refine(xfec, hard_bits, constellation, rate,
+                                   n_mod, n0)
+    snr = _snr_refine_frames(xfec, hard_bits, constellation, rate, n_mod)
+    return snr, torch.where(snr > 0, 1.0 / snr.clamp(min=1e-9), n0)
 
 
 def acq_metric(symbols):

@@ -67,7 +67,7 @@ from .receiver import (
     FECStage,
     RxConfig,
     RxStats,
-    _snr_refine_frames,
+    _snr_refine_n0,
     acq_metric,
     get_stats,
 )
@@ -318,11 +318,9 @@ class StreamReceiver(StreamFrontEnd):
         with span("snr", dev):
             xfec_c = out["x0"]
             hard_c = hard_t[:, ::F].t()
-            snr_ref = _snr_refine_frames(xfec_c, hard_c, cfg.constellation,
-                                         cfg.rate, cfg.pls_info.n_mod)
-            n0_refined = torch.where(snr_ref > 0,
-                                     1.0 / snr_ref.clamp(min=1e-9),
-                                     st["n0_refined"])
+            snr_ref, n0_refined = _snr_refine_n0(
+                xfec_c, hard_c, cfg.constellation, cfg.rate,
+                cfg.pls_info.n_mod, st["n0_refined"])
 
         with span("tracking", dev):
             # ---- frame-alignment tracking (slips from the timing loop) ----

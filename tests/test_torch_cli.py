@@ -310,7 +310,7 @@ def test_debug_log_names_no_kernel_launch_on_the_cpu(caplog, capsys,
         "bch_locator": 0, "bch_chien": 0, "crc8_validity": 0,
         "vcm_walk": 0, "plsync_header": 0, "plsync_stats": 0,
         "plsync_demap": 0, "frontend_rotate": 0, "frontend_agc": 0,
-        "ffsync_track": 0, "rxspan": 0}
+        "ffsync_track": 0, "rxspan": 0, "snr_refine": 0}
     assert json.loads(shapes[-1].split(" ", 2)[2]) == {
         "mf_segmented": [], "ldpc_layered": [], "plsync": [],
         "frontend": [], "ffsync_track": []}

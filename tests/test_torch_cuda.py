@@ -37,7 +37,7 @@ from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
 
 from chip_smoke import (WALK_MODES, WALK_TOL, _books_diff, _gardner_waveform,
                         _make_vcm_stimulus, _payload_case, _plheader_case,
-                        _plsync_small, _walk_states)
+                        _plsync_small, _snr_inputs, _walk_states)
 
 pytestmark = pytest.mark.cuda
 
@@ -1088,8 +1088,8 @@ def _assert_like_eager(got, want):
 def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     """One capture of T = 3 chained steps holds T launches of each ctypes
     kernel of the step (the front end's AGC, rotate and tracker kernels,
-    MF, PLHEADER, payload, LDPC, and the sync-free form's BCH locator,
-    Chien and CRC-8; counted while captured; the profiler
+    MF, PLHEADER, payload, LDPC, the sync-free form's BCH locator, Chien
+    and CRC-8, and the SNR refinement; counted while captured; the profiler
     sees them in one replay), and its replays equal T eager steps from the
     same state, call after call, with no host sync."""
     import warnings
@@ -1105,7 +1105,7 @@ def test_scan_graph_records_the_kernels_and_equals_eager_steps(card):
     step_kernels = ("mf_segmented", "plsync_header", "plsync_stats",
                     "plsync_demap", "ldpc_layered", "bch_locator", "bch_chien",
                     "crc8_validity", "frontend_agc", "frontend_rotate",
-                    "ffsync_track")
+                    "ffsync_track", "snr_refine")
     assert scan.launches_per_call == {
         k: 3 if k in step_kernels else 0 for k in before}
     # the warm-up step and the capture
@@ -2086,3 +2086,168 @@ def test_stream_frontend_in_a_graph_replays_the_eager_bytes(card):
     for k in ("sbuf", "sfill", "agc_gain", "rot_phase", "ff_tau", "ff_rate"):
         assert torch.equal(out[0][k], want[0][k]), k
     assert torch.equal(out[1], want[1])
+
+
+# ------------------------------------------------- post-decoder SNR refinement
+
+SNR_RTOL = 1e-5     # float32 sums in another order than the plain version's
+SNR_CASES = [       # constellation, rate, B, rows, R, bits layout
+    ("QPSK", "1/2", 64, 32400, 32400, "lanes"),   # the CCM step, lane-major
+    ("QPSK", "1/2", 64, 32400, 32400, "rows"),    # the CCM step's LDPC rows
+    ("QPSK", "1/2", 128, 32400, 4096, "rows"),    # a VCM batch, R_SUB rows
+    ("8PSK", "3/5", 37, 21600, 4096, "rows"),     # VCM 8PSK 3/5, interleaved
+    ("8PSK", "3/5", 64, 21600, 21600, "lanes"),
+    ("16APSK", "2/3", 8, 16200, 16200, "rows"),
+    ("16APSK", "2/3", 70, 4050, 4000, "lanes"),   # a ragged frame tile
+    ("32APSK", "3/4", 8, 12960, 12960, "lanes"),
+    ("32APSK", "3/4", 3, 3240, 3000, "rows"),
+    ("QPSK", "1/2", 1, 32400, 32400, "rows"),     # B = 1: a host frame
+    ("8PSK", "3/5", 1, 5400, 5400, "lanes"),
+]
+
+
+@pytest.mark.parametrize("constellation,rate,B,rows,R,layout", SNR_CASES)
+def test_snr_kernel_matches_plain(card, constellation, rate, B, rows, R,
+                                  layout):
+    """One launch against the plain version on the CPU: each frame's SNR
+    within SNR_RTOL; the N0 rule exact on the kernel's SNR; a second launch
+    (the ticket reset by the first) equal bit for bit."""
+    from dvbs2rx_tpu_torch.ops import snr_cuda
+    from dvbs2rx_tpu_torch.rx.receiver import _snr_refine_frames
+
+    x, hard = _snr_inputs(card, constellation, rate, B, rows, R, layout,
+                        seed=B + rows + R)
+    assert snr_cuda.layout(hard) == (layout if B > 1 else "rows")
+    n_mod = hard.shape[1] // rows
+    want = _snr_refine_frames(x.cpu(), hard.cpu(), constellation, rate,
+                              n_mod)
+    n0 = torch.linspace(0.0, 1.0, B, device=card)
+    before = snr_cuda.LAUNCHES
+    got, none = snr_cuda.snr_refine(x, hard, constellation, rate, n_mod)
+    again, n0_out = snr_cuda.snr_refine(x, hard, constellation, rate, n_mod,
+                                        n0)
+    torch.cuda.synchronize()
+    assert snr_cuda.LAUNCHES == before + 2 and none is None
+    torch.testing.assert_close(got.cpu(), want, rtol=SNR_RTOL, atol=0)
+    assert torch.equal(again, got)
+    snr = got.cpu()
+    assert torch.equal(n0_out.cpu(), torch.where(
+        snr > 0, 1.0 / snr.clamp(min=1e-9), n0.cpu()))
+
+
+def test_snr_kernel_clamps_and_passes_nan(card):
+    """A frame on its points (error power 0: sp / 1e-12), a frame of zeros
+    (SNR 1) and a frame with a NaN symbol (NaN SNR, the carried N0 kept),
+    as the plain version gives them."""
+    from dvbs2rx_tpu_torch.ops import snr_cuda
+    from dvbs2rx_tpu_torch.rx.receiver import _snr_refine_frames
+
+    x, hard = _snr_inputs(card, "8PSK", "3/5", 4, 5400, 5400, "rows", seed=7,
+                        noise=0.0)
+    x[1] = 0.0
+    x[2, 100, 0] = float("nan")
+    want = _snr_refine_frames(x.cpu(), hard.cpu(), "8PSK", "3/5", 3)
+    n0 = torch.full((4,), 0.5, device=card)
+    got, n0_out = snr_cuda.snr_refine(x, hard, "8PSK", "3/5", 3, n0)
+    got, n0_out = got.cpu(), n0_out.cpu()
+    torch.testing.assert_close(got, want, rtol=SNR_RTOL, atol=0,
+                               equal_nan=True)
+    assert float(got[0]) > 1e15 and abs(float(got[1]) - 1.0) < 1e-5
+    assert torch.isnan(got[2]) and float(n0_out[2]) == 0.5
+    assert torch.equal(n0_out[[0, 1, 3]], 1.0 / got[[0, 1, 3]].clamp(
+        min=1e-9))
+
+
+def test_snr_kernel_in_a_graph_replays_the_eager_bits(card):
+    """The launch with the N0 update captured in a CUDA graph after a
+    warm-up call: every replay writes the eager launch's bits."""
+    from dvbs2rx_tpu_torch.ops import snr_cuda
+
+    x, hard = _snr_inputs(card, "QPSK", "1/2", 64, 32400, 32400, "rows",
+                        seed=11)
+    n0 = torch.full((64,), 0.25, device=card)
+    want = snr_cuda.snr_refine(x, hard, "QPSK", "1/2", 2, n0)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        snr_cuda.snr_refine(x, hard, "QPSK", "1/2", 2, n0)
+    torch.cuda.current_stream(card).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    before = snr_cuda.LAUNCHES
+    with torch.cuda.graph(g):
+        out = snr_cuda.snr_refine(x, hard, "QPSK", "1/2", 2, n0)
+    assert snr_cuda.LAUNCHES == before + 1
+    for _ in range(3):
+        out[0].zero_()
+        out[1].zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def test_snr_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    from dvbs2rx_tpu_torch.ops import snr_cuda
+
+    x, hard = _snr_inputs(card, "QPSK", "1/2", 2, 900, 900, "rows", seed=3)
+    n0 = torch.zeros((2,), device=card)
+    before = snr_cuda.LAUNCHES
+    for args, kw in (
+            ((x.double(), hard), {}),
+            ((x, hard.to(torch.int8)), {}),
+            ((x[:1], hard), {}),
+            ((x, hard[:, :1799]), {}),
+            ((torch.cat([x, x], 1), hard), {}),
+            ((torch.cat([x, x], 1)[:, ::2], hard), {}),
+            ((x.flatten()[1:1801].view(1, 900, 2), hard[:1]), {}),
+            ((x, hard), {"n0": n0[:1]}),
+            ((x, hard), {"n0": n0.double()}),
+            ((x.cpu(), hard.cpu()), {})):
+        with pytest.raises(ValueError):
+            snr_cuda.snr_refine(*args, "QPSK", "1/2", 2, **kw)
+    with pytest.raises(ValueError):
+        snr_cuda.snr_refine(x, hard, "QPSK", "1/2", 3)
+    assert snr_cuda.LAUNCHES == before
+
+
+def test_every_card_path_runs_the_snr_kernel(card):
+    """On CUDA tensors ``_snr_refine_frames`` launches the kernel: the CCM
+    step once a step (with the N0 update), the VCM step once per decoded
+    batch (as many as its LDPC launches) and the host ``Receiver`` once
+    per FEC batch with snapshots."""
+    from dvbs2rx_tpu_torch.ops import snr_cuda
+    from dvbs2rx_tpu_torch.rx.receiver import make_receiver
+    from dvbs2rx_tpu_torch.rx.vcm_stream import VCMStreamReceiver
+
+    C, F, T = 2, 2, 2
+    cfg = RxConfig(modcod="qpsk1/2", frame_size="short")
+    sr = StreamReceiver(cfg, n_channels=C, frames_per_step=F, device=card)
+    tx = Transmitter(TxConfig(modcod="qpsk1/2", frame_size="short"))
+    rng = np.random.default_rng(0)
+    pkts = rng.integers(0, 256, (120, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    iq = np.stack([awgn_channel(tx.ts_to_iq(pkts.reshape(-1)), 15.0, sps=2,
+                                seed=1)] * C)
+    state = sr.prime(iq[:, : sr._n_fe])
+    n0 = snr_cuda.LAUNCHES
+    for t in range(T):
+        blk = cplx.from_np(iq[:, sr._n_fe + t * sr.n_in:
+                              sr._n_fe + (t + 1) * sr.n_in]).astype(np.float32)
+        state, _, st = sr.step(state, sr.put_iq(blk))
+    assert snr_cuda.LAUNCHES == n0 + T
+    assert bool((st["snr_refined"] > 0).all())
+    assert bool((state["n0_refined"] > 0).all())
+    vcfg, viq = _vcm_case([0, 1], 420)
+    vr = VCMStreamReceiver(vcfg, 2, 2, fec_lanes=8, device=card)
+    state = vr.prime(viq[:, : vr._n_fe])
+    n0, n_ldpc = snr_cuda.LAUNCHES, ldpc_cuda.LAUNCHES
+    for t in range(6):
+        blk = cplx.from_np(viq[:, vr._n_fe + t * vr.n_in:
+                               vr._n_fe + (t + 1) * vr.n_in]
+                           ).astype(np.float32)
+        state, _, st = vr.step(state, vr.put_iq(blk))
+    assert snr_cuda.LAUNCHES - n0 == ldpc_cuda.LAUNCHES - n_ldpc > 0
+    hcfg = RxConfig(modcod="qpsk1/2", frame_size="short")
+    rx = make_receiver(hcfg, device=card)
+    n0 = snr_cuda.LAUNCHES
+    rx.receive(iq[0])
+    assert snr_cuda.LAUNCHES > n0 and rx.stats.bch_frame_errors == 0
