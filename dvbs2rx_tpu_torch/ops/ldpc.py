@@ -21,7 +21,9 @@ new run, because saturating deltas do not commute).
 Per-lane freeze, as in the JAX decoder: a frame whose parity check passed
 takes no further deltas, so every frame's result is independent of its
 batch. Outputs match the JAX decoder bit for bit: hard bits, final LLRs,
-the batch iteration count and per-frame convergence.
+the batch iteration count and per-frame convergence. ``decode_frames``
+also counts the iterations each frame ran (those it entered unconverged,
+as the CUDA kernel counts them); the batch count is their maximum.
 
 Compressed check messages (the CUDA kernel's on-chip layout, which assumes
 the default rule's +-32 clamp; min-sum-c stores int8 messages). The stored
@@ -225,7 +227,9 @@ class LDPCDecoder:
 
     ``__call__`` takes (B, N) int8 LLRs, ``decode_lane_major`` takes (N, B);
     both return (hard bits uint8, final LLRs int8, iterations int32 scalar,
-    converged (B,) bool) in the layout they were given.
+    converged (B,) bool) in the layout they were given. ``decode_frames``
+    is ``decode_lane_major`` with the iterations of each frame, (B,) int32,
+    in place of the scalar.
     """
 
     def __init__(self, code: LDPCCode, max_trials: int = 25, device=None,
@@ -307,28 +311,38 @@ class LDPCDecoder:
             st[ix] = (st[ix] + delta[a:b].reshape(-1, B)).clamp(-128, 127)
 
     def _run_decode(self, st):
-        """Decode the flat int32 state in place; returns (iters, bad)."""
+        """Decode the flat int32 state in place; returns (iters, bad,
+        the iterations each frame entered unconverged (B,) int32)."""
         B = st.shape[1]
         msgs = torch.zeros((self.q, self.max_deg, M, B), dtype=torch.int32,
                            device=st.device)
         bad = self._bad(st)
+        frame_iters = torch.zeros((B,), dtype=torch.int32, device=st.device)
         it = 0
         while it < self.max_trials and bool(bad.any()):
+            frame_iters += bad
             for i in range(self.q):
                 self._update_layer(i, st, msgs, it == 0, bad)
             bad = bad & self._bad(st)
             it += 1
-        return it, bad
+        return it, bad, frame_iters
 
-    def decode_lane_major(self, llrsT):
+    def _decode(self, llrsT):
         if llrsT.dtype != torch.int8 or llrsT.shape[0] != self.N:
             raise ValueError(f"expected ({self.N}, B) int8 LLRs")
         st = to_state(llrsT.to(self.device, torch.int32), self.code)
-        it, bad = self._run_decode(st)
+        it, bad, frame_iters = self._run_decode(st)
         out = from_state(st, self.code).to(torch.int8)
-        hard = (out < 0).to(torch.uint8)
+        return (out < 0).to(torch.uint8), out, it, frame_iters, ~bad
+
+    def decode_lane_major(self, llrsT):
+        hard, out, it, _, conv = self._decode(llrsT)
         iters = torch.tensor(it, dtype=torch.int32, device=out.device)
-        return hard, out, iters, ~bad
+        return hard, out, iters, conv
+
+    def decode_frames(self, llrsT):
+        hard, out, _, frame_iters, conv = self._decode(llrsT)
+        return hard, out, frame_iters, conv
 
     def __call__(self, llrs):
         hard_t, out_t, iters, conv = self.decode_lane_major(

@@ -84,8 +84,10 @@ class CudaLDPCDecoder:
     """Same call contract as ``ops.ldpc.LDPCDecoder`` (and the JAX
     ``PallasLDPCDecoder``): ``decode_lane_major`` (N, B) int8 -> (hard_t
     (N, B) uint8, llrsT (N, B) int8, iters int32 scalar = max over frames,
-    conv (B,) bool); ``__call__`` the same in (B, N) layout. ``launch`` is
-    the kernel itself, with per-frame iteration counts.
+    conv (B,) bool); ``__call__`` the same in (B, N) layout;
+    ``decode_frames`` is ``decode_lane_major`` with the iterations of each
+    frame (B,) int32 in place of their maximum. ``launch`` is the kernel
+    itself, with per-frame iteration counts.
 
     The kernel works frame by frame, in (B, N) rows. ``decode_lane_major``
     hands it ``llrsT.t()`` (no copy when the caller's (N, B) tensor is a
@@ -116,8 +118,14 @@ class CudaLDPCDecoder:
     def decode_lane_major(self, llrsT):
         if not llrsT.is_cuda:
             return self._plain_decoder().decode_lane_major(llrsT)
+        hard_t, out_t, iters, conv = self.decode_frames(llrsT)
+        return hard_t, out_t, iters.max(), conv
+
+    def decode_frames(self, llrsT):
+        if not llrsT.is_cuda:
+            return self._plain_decoder().decode_frames(llrsT)
         hard, out, iters, conv = self.launch(llrsT.t().contiguous())
-        return hard.t(), out.t(), iters.max(), conv
+        return hard.t(), out.t(), iters, conv
 
     def __call__(self, llrs):
         if not llrs.is_cuda:

@@ -176,7 +176,7 @@ class BatchedPipeline:
         stats = {
             "bch_errors": (n_corr < 0).sum(),
             "metric_min": out["metric"].min(),
-            "ldpc_iters": iters,
+            "ldpc_iters": iters.max(),
         }
         return kbytes.reshape(C, F, -1), out["n0"], stats
 

@@ -78,7 +78,8 @@ class Mesh:
         """Per-shard dicts of tensors as one dict on the first device: the
         leaves ``reduce`` names combined over the shards (``"sum"``,
         ``"min"`` or ``"max"``, as XLA reduces a whole-array statistic
-        under the JAX mesh), every other leaf concatenated along ``dim``."""
+        under the JAX mesh; in the leaf's dtype), every other leaf
+        concatenated along ``dim``."""
         d0 = self.devices[0]
         out = {}
         for k in parts[0]:
@@ -88,7 +89,7 @@ class Mesh:
                 out[k] = self.gather(vals, dim)
             else:
                 v = torch.stack([x.to(d0, non_blocking=True) for x in vals])
-                out[k] = getattr(v, _REDUCE[how])(0)
+                out[k] = getattr(v, _REDUCE[how])(0).to(v.dtype)
         return out
 
 

@@ -325,9 +325,9 @@ class FECStage:
     ``PLSTables`` of ``cfg.pls``).
 
     ``lane_major(llrsT (N, B) int8)`` -> (kbytes (B, kbch/8) uint8, n_corr
-    (B,) int32, iters int32, ok (B,) int32, hard_t (N, B) uint8). On a CUDA
-    tensor the LDPC decode of the default rule is the hand-written kernel;
-    ``sync_free=True`` takes the BCH form that reads nothing back.
+    (B,) int32, iters (B,) int32, ok (B,) int32, hard_t (N, B) uint8). On a
+    CUDA tensor the LDPC decode of the default rule is the hand-written
+    kernel; ``sync_free=True`` takes the BCH form that reads nothing back.
     """
 
     def __init__(self, cfg: RxConfig, device=None):
@@ -346,10 +346,12 @@ class FECStage:
 
 def fec_lane_major(ldpc, bch, fec: FECInfo, llrsT, sync_free: bool = False):
     """LDPC -> BCH -> byte packing of one code (``Receiver.
-    _fec_stage_lane_major_impl``): llrsT (N, B) int8 -> (kbytes (B, kbch/8)
-    uint8, n_corr (B,) int32, iters int32, ok (B,) int32, hard_t (N, B)
-    uint8). ``sync_free`` as in ``BCHDecoder.decode_lane_major``."""
-    hard_t, _llrs_out, iters, ok = ldpc.decode_lane_major(llrsT)
+    _fec_stage_lane_major_impl``, but with the iterations of each frame,
+    whose maximum is its ``iters``): llrsT (N, B) int8 -> (kbytes (B,
+    kbch/8) uint8, n_corr (B,) int32, iters (B,) int32, ok (B,) int32,
+    hard_t (N, B) uint8). ``sync_free`` as in ``BCHDecoder.
+    decode_lane_major``."""
+    hard_t, _llrs_out, iters, ok = ldpc.decode_frames(llrsT)
     corrected_t, n_corr = bch.decode_lane_major(hard_t[: fec.nbch],
                                                 sync_free)
     kbits_t = corrected_t[: fec.kbch].to(torch.int64)
@@ -836,7 +838,7 @@ class Receiver:
             pkt_ok, hdr_ok = pkt_ok.cpu().numpy(), hdr_ok.cpu().numpy()
         frames = frames.cpu().numpy()
         n_corr = n_corr.cpu().numpy()
-        iters = int(iters)
+        iters = int(iters.max())
         hard = hard_t.t()
         B = reqs[0][1].shape[0]
         out = []

@@ -77,7 +77,11 @@ FP_MIN, FP_MAX = 2, 90
 FP0 = 46            # nominal frame-start index inside the carried tail
 # how the shards' whole-step scalars combine under a mesh (as XLA reduces
 # them over the sharded axis); every other statistic leads with channels
-SHARD_REDUCE = {"bch_errors": "sum", "ldpc_iters": "max"}
+SHARD_REDUCE = {"bch_errors": "sum", "ldpc_iters": "max",
+                "ldpc_frame_iters": "sum", "ldpc_converged": "sum"}
+# the LDPC counters: a scan call sums them over its steps (one scalar a
+# call) where it stacks every other statistic
+CALL_SUMS = ("ldpc_frame_iters", "ldpc_converged")
 
 
 # the per-channel dynamic slice (``ops.cplx.window_rows``)
@@ -260,10 +264,11 @@ class StreamReceiver(StreamFrontEnd):
         Under a mesh: the list of shard states + iq (a host or device
         block, or ``put_iq``'s list) -> (the list of new shard states, and
         kbytes and stats equal to the unsharded step's: channel-led leaves
-        concatenated on the first device, ``bch_errors`` summed and
-        ``ldpc_iters`` the maximum over the shards). Each shard's step
-        takes the BCH form that reads nothing back, so queuing one shard
-        never waits on another's card."""
+        concatenated on the first device, the whole-step scalars combined
+        as ``SHARD_REDUCE`` says: ``bch_errors`` and the LDPC counters
+        summed, ``ldpc_iters`` the maximum over the shards). Each shard's
+        step takes the BCH form that reads nothing back, so queuing one
+        shard never waits on another's card."""
         if self.mesh is None:
             return self._step(state, iq, sync_free=False)
         outs = []
@@ -277,7 +282,8 @@ class StreamReceiver(StreamFrontEnd):
     def make_scan_step(self, T: int):
         """T chained steps per call: ``scan(state, blocks (T, C, n_in, 2))
         -> (state', kbytes (T, C, F, kbch/8), stats)``, every stats leaf
-        stacked over T (the JAX ``make_scan_step``). See ``ScanStep``."""
+        stacked over T (the JAX ``make_scan_step``) but the LDPC counters,
+        summed (``CALL_SUMS``). See ``ScanStep``."""
         return ScanStep(self, T)
 
     def _step(self, state, iq, sync_free):
@@ -309,8 +315,9 @@ class StreamReceiver(StreamFrontEnd):
             out = self._lane(hdr[:, :F, 1:], hdr[:, 1:, 1:], sym, start, cc,
                              n0_ov, x_every=F)
         with span("fec", dev):
-            kbytes, n_corr, iters, ok, hard_t = self.fec.lane_major(
+            kbytes, n_corr, frame_iters, ok, hard_t = self.fec.lane_major(
                 out["llrs"], sync_free)
+            iters = frame_iters.max()
             ts_ok, hdr_ok = packet_validity(
                 kbytes ^ self.fec.bb_scramble[None])
 
@@ -395,6 +402,10 @@ class StreamReceiver(StreamFrontEnd):
                 "locked": locked,
                 "bch_errors": (n_corr < 0).sum(),
                 "ldpc_iters": iters,
+                # the decoder's work: iterations over the step's frames,
+                # and the frames whose parity check passed
+                "ldpc_frame_iters": frame_iters.sum(dtype=torch.int32),
+                "ldpc_converged": ok.sum(dtype=torch.int32),
                 "n0": out["n0"].reshape(C, F)[:, 0],
                 "snr_refined": snr_ref,
                 "coarse_foffset": new_state["coarse_foffset"],
@@ -545,7 +556,8 @@ class StreamReceiver(StreamFrontEnd):
 
 def _chain(sr, state, blocks):
     """T = len(blocks) steps of one unsharded receiver, each with the BCH
-    form that reads nothing back; outputs stacked over T."""
+    form that reads nothing back; outputs stacked over T, the
+    ``CALL_SUMS`` counters summed over it."""
     kbs, stats = [], []
     for t in range(blocks.shape[0]):
         state, kb, st = sr._step(state, blocks[t], sync_free=True)
@@ -553,8 +565,11 @@ def _chain(sr, state, blocks):
         stats.append(st)
     # the stacking over T: the last step's outputs stage
     with span("outputs"):
-        return (state, torch.stack(kbs),
-                {k: torch.stack([st[k] for st in stats]) for k in stats[0]})
+        out = {}
+        for k in stats[0]:
+            v = torch.stack([st[k] for st in stats])
+            out[k] = v.sum(0, dtype=v.dtype) if k in CALL_SUMS else v
+        return state, torch.stack(kbs), out
 
 
 class _GraphChain:
@@ -618,7 +633,8 @@ class ScanStep:
     """``StreamReceiver.make_scan_step(T)``: ``scan(state, blocks (T, C,
     n_in, 2)) -> (state', kbytes (T, C, F, kbch/8), stats)``, every stats
     leaf stacked over T, the same values as T calls of ``step`` (JAX
-    ``make_scan_step``, a ``lax.scan`` in one dispatch).
+    ``make_scan_step``, a ``lax.scan`` in one dispatch), but the LDPC
+    counters of ``CALL_SUMS``: one scalar a call, the sum of the T steps'.
 
     On CPU tensors a Python loop over the step. On the card one
     ``torch.cuda.CUDAGraph`` holding the T chained steps, captured on the

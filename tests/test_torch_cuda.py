@@ -33,7 +33,7 @@ from dvbs2rx_tpu_torch.ops.crc8_dev import packet_validity, packet_validity_plai
 from dvbs2rx_tpu_torch.ops.encode import get_device_encoder
 from dvbs2rx_tpu_torch.ops.ldpc import LDPCDecoder
 from dvbs2rx_tpu_torch.rx.receiver import RxConfig
-from dvbs2rx_tpu_torch.rx.stream import StreamReceiver
+from dvbs2rx_tpu_torch.rx.stream import CALL_SUMS, StreamReceiver
 
 from chip_smoke import (WALK_MODES, WALK_TOL, _books_diff, _gardner_waveform,
                         _make_vcm_stimulus, _payload_case, _plheader_case,
@@ -1073,10 +1073,19 @@ def _eager(sr, state, blocks):
 
 
 def _assert_like_eager(got, want):
+    """Stats stacked over the steps against the eager steps'; the LDPC
+    counters a scan call sums (``CALL_SUMS``) against the steps' sum."""
     _, kbs, stats = got
+    for k in CALL_SUMS:
+        g = stats[k].cpu()
+        if g.dim():                 # the eager steps, stacked by the caller
+            g = g.sum()
+        assert int(g) == sum(int(st[k]) for _, st in want), k
     for t, (kb, st) in enumerate(want):
         assert torch.equal(kbs[t], kb.to(kbs.device))
         for k, v in st.items():
+            if k in CALL_SUMS:
+                continue
             g, v = stats[k][t].cpu(), v.cpu()
             if v.dtype.is_floating_point:
                 torch.testing.assert_close(g, v, rtol=1e-6, atol=1e-12,
@@ -2251,3 +2260,31 @@ def test_every_card_path_runs_the_snr_kernel(card):
     n0 = snr_cuda.LAUNCHES
     rx.receive(iq[0])
     assert snr_cuda.LAUNCHES > n0 and rx.stats.bch_frame_errors == 0
+
+
+def test_apsk_lane_program_on_the_card_matches_the_plain_reference(card):
+    """``tests/test_torch_apsk.py``'s lane comparison on the card: the PL
+    sync kernels on 2 normal piloted 16APSK 3/4 frames (the pilot-mode
+    statistics, the 16APSK max-log demap tiles) against the float64
+    reference, within that file's tolerances; and the rate-3/4 LDPC
+    kernel's per-frame iterations and bits against the plain decoder's on
+    the lanes' LLRs."""
+    from rxbench.reference import payload as ref
+    from test_torch_apsk import (PLS, apsk_frames, apsk_gaps, apsk_lane,
+                                 apsk_within)
+
+    y, L, cws = apsk_frames()
+    cc, n0_ov = torch.tensor([True, True]), torch.tensor([-1.0, 0.05])
+    out, fec = apsk_lane(y, L, cc, n0_ov, card)
+    pair = torch.from_numpy(np.stack([y[:L], y[L: 2 * L]]))
+    want = ref.frame_payload(pair, PLS, n0_ov, cc)
+    g = apsk_gaps(out, want)
+    assert apsk_within(g, want["llrs"].numel()), g
+    llrs = out["llrs"].to(card)
+    got = fec.ldpc.decode_frames(llrs)
+    plain = LDPCDecoder(fec.ldpc.code, fec.ldpc.max_trials, "cpu") \
+        .decode_frames(llrs.cpu())
+    for a, b, what in zip(got, plain, ("hard", "llrs", "iters", "conv")):
+        assert torch.equal(a.cpu(), b), what
+    assert bool(plain[3].all())
+    np.testing.assert_array_equal(plain[0][: cws.shape[1]].t().numpy(), cws)

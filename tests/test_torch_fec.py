@@ -153,6 +153,7 @@ def test_fec_stage_kbytes_bit_exact():
     want = [np.asarray(x) for x in
             jrx._fec_stage_lane_major_impl(jnp.asarray(llrsT))]
     got = [x.numpy() for x in stage.lane_major(torch.from_numpy(llrsT))]
+    got[2] = got[2].max()               # each frame's iterations
     for g, w, what in zip(got, want, ("kbytes", "n_corr", "iters", "ok",
                                       "hard_t")):
         np.testing.assert_array_equal(g, w, err_msg=what)

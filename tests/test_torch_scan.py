@@ -2,7 +2,8 @@
 
 - ``StreamReceiver.make_scan_step(4)`` against four of the port's own
   ``step`` calls from the same state: kbytes, state and every stats leaf
-  bit-identical (the scan's CPU form is the same step with the BCH form
+  bit-identical, the LDPC counters the scan sums over its steps equal to
+  the steps' sum (the scan's CPU form is the same step with the BCH form
   that reads nothing back), and its kbytes against the JAX
   ``make_scan_step(4)`` exactly (the stimulus of ``tests/test_stream.py``:
   one channel, two short QPSK 1/2 frames per step, 15 dB).
@@ -22,7 +23,7 @@ from dvbs2rx_tpu.rx.receiver import RxConfig as JRxConfig
 from dvbs2rx_tpu.rx.stream import StreamReceiver as JStreamReceiver
 from dvbs2rx_tpu_torch.ops import bch
 from dvbs2rx_tpu_torch.rx.receiver import RxConfig
-from dvbs2rx_tpu_torch.rx.stream import ScanStep, StreamReceiver
+from dvbs2rx_tpu_torch.rx.stream import CALL_SUMS, ScanStep, StreamReceiver
 
 from tests.test_stream import _stimulus
 from tests.test_torch_fec import SHORT, _bch_codewords
@@ -61,8 +62,14 @@ def test_scan_matches_stepwise_bit_for_bit(run):
         assert torch.equal(kbs[t], kb)
         assert set(sstats) == set(stats)
         for k, v in stats.items():
+            if k in CALL_SUMS:
+                continue
             assert sstats[k].shape == (T,) + v.shape, k
             assert torch.equal(sstats[k][t], v), k
+    # the LDPC counters: one scalar a call, the steps' sum
+    for k in CALL_SUMS:
+        want = torch.stack([st[k] for _, st in steps]).sum(dtype=torch.int32)
+        assert sstats[k].shape == () and torch.equal(sstats[k], want), k
     for k, v in state.items():
         assert torch.equal(state2[k], v), k
     assert bool(sstats["locked"][-1].all())
